@@ -1,0 +1,73 @@
+"""K1: correlation window lookup with the fused convc1 (csrc/corr.cu).
+
+Counterpart of cista_flow_tpu/ops/pallas_corr.py ``lookup_corr_pallas``.
+CUDA tensors go to the kernel (or raise); CPU tensors take the plain
+version below.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .corr import CorrPyramid, lookup_corr
+from .cuda_build import DTYPE_CODES, I, Kernel, P, check_cuda, on_cpu, stream_ptr
+
+KERNEL = Kernel("corr.cu", {"cista_corr_lookup": [I, I, P, P, P, P, I, I, I, I,
+                                                  I, I, I, I, P, P, P, P, I, I, P]})
+RADIUS = 4
+LEVELS = 4
+PROJ_CHANNELS = 256   # the kernel's fused output width (one thread each)
+
+
+def lookup_plain(pyr: CorrPyramid, coords: torch.Tensor, weight=None,
+                 bias=None) -> torch.Tensor:
+    """lookup_corr, then relu(1x1 conv + bias) when ``weight`` is given."""
+    c = lookup_corr(pyr, coords, RADIUS)
+    if weight is None:
+        return c
+    y = F.conv2d(c.float(), weight.float(), bias.float())
+    return torch.relu(y).to(c.dtype)
+
+
+def lookup(pyr: CorrPyramid, coords: torch.Tensor, weight=None,
+           bias=None) -> torch.Tensor:
+    """coords: (B, 2, H1, W1) f32 level-0 pixel coords. Without ``weight``
+    returns the (B, 324, H1, W1) windows; with the convc1 ``weight``
+    (256, 324, 1, 1) and ``bias`` (256,) returns relu(convc1(windows)),
+    (B, 256, H1, W1). Output in the pyramid's dtype."""
+    if on_cpu(coords):
+        return lookup_plain(pyr, coords, weight, bias)
+    levels = pyr.levels
+    b, two, h1, w1 = coords.shape
+    n = b * h1 * w1
+    if len(levels) != LEVELS or two != 2 or coords.dtype != torch.float32:
+        raise ValueError("corr kernel needs 4 levels and f32 (B, 2, H1, W1) coords")
+    for lv in levels:
+        if lv.dim() != 3 or lv.shape[0] != n or lv.numel() == 0:
+            raise ValueError(f"corr kernel: level shape {tuple(lv.shape)} does not "
+                             f"match {n} samples")
+    dt = levels[0].dtype
+    check_cuda("corr_lookup", DTYPE_CODES, *levels, coords)
+    if any(lv.dtype != dt for lv in levels):
+        raise ValueError("corr kernel: levels differ in dtype")
+    proj = weight is not None
+    if proj:
+        if weight.shape != (PROJ_CHANNELS, LEVELS * 81, 1, 1) or bias.shape != (PROJ_CHANNELS,):
+            raise ValueError(f"corr kernel projects 324 -> {PROJ_CHANNELS} only")
+        # (324, 256), the layout the kernel streams through shared memory
+        wt = weight.reshape(PROJ_CHANNELS, -1).t().contiguous().to(dt)
+        bias = bias.contiguous().to(dt)
+        check_cuda("corr_lookup", (dt,), wt, bias, levels[0])
+        out = torch.empty((b, PROJ_CHANNELS, h1, w1), dtype=dt, device=coords.device)
+    else:
+        wt = bias = None
+        out = torch.empty((b, LEVELS * 81, h1, w1), dtype=dt, device=coords.device)
+    hs = [lv.shape[1] for lv in levels]
+    ws = [lv.shape[2] for lv in levels]
+    with torch.cuda.device(coords.device):
+        KERNEL.launch("cista_corr_lookup", DTYPE_CODES[dt], int(proj),
+                      *[lv.data_ptr() for lv in levels], *hs, *ws,
+                      coords.data_ptr(), wt.data_ptr() if proj else None,
+                      bias.data_ptr() if proj else None, out.data_ptr(),
+                      n, h1 * w1, stream_ptr(coords.device))
+    return out

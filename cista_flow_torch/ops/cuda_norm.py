@@ -1,0 +1,70 @@
+"""K4: instance norm (+ relu) and its stats phase (csrc/norm.cu).
+
+Counterpart of cista_flow_tpu/ops/pallas_norm.py: ``instance_norm_fused``
+and ``instance_norm_stats``. CUDA tensors go to the kernel (or raise); CPU
+tensors take the plain versions below.
+"""
+from __future__ import annotations
+
+import torch
+
+from .cuda_build import DTYPE_CODES, F, I, Kernel, LL, P, check_cuda, on_cpu, stream_ptr
+
+KERNEL = Kernel("norm.cu", {"cista_instance_norm": [I, P, P, P, P, LL, I, F, I, P]})
+
+
+def instance_norm_stats_plain(x: torch.Tensor, eps: float = 1e-5):
+    """(mean, inv_std), each (B, C) f32: two-pass f32 statistics."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3))
+    var = (xf - mean[:, :, None, None]).square().mean(dim=(2, 3))
+    return mean, torch.rsqrt(var + eps)
+
+
+def instance_norm_plain(x: torch.Tensor, eps: float = 1e-5,
+                        relu: bool = False) -> torch.Tensor:
+    """InstanceNorm2d (affine=False) with f32 statistics, optional relu."""
+    mean, inv = instance_norm_stats_plain(x, eps)
+    y = (x.float() - mean[:, :, None, None]) * inv[:, :, None, None]
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype)
+
+
+def _launch(x, y, mean, inv, eps, relu):
+    b, c, h, w = x.shape
+    with torch.cuda.device(x.device):
+        KERNEL.launch("cista_instance_norm", DTYPE_CODES[x.dtype], x.data_ptr(),
+                      y.data_ptr() if y is not None else None,
+                      mean.data_ptr() if mean is not None else None,
+                      inv.data_ptr() if inv is not None else None,
+                      b * c, h * w, float(eps), int(relu), stream_ptr(x.device))
+
+
+def _check(x):
+    if x.dim() != 4 or x.numel() == 0:
+        raise ValueError(f"instance norm kernel needs a non-empty NCHW tensor, got {tuple(x.shape)}")
+    check_cuda("instance_norm", DTYPE_CODES, x)
+
+
+def instance_norm_fused(x: torch.Tensor, eps: float = 1e-5,
+                        relu: bool = False) -> torch.Tensor:
+    """relu(instance_norm(x)) on NCHW x, one launch."""
+    if on_cpu(x):
+        return instance_norm_plain(x, eps, relu)
+    _check(x)
+    y = torch.empty_like(x)
+    _launch(x, y, None, None, eps, relu)
+    return y
+
+
+def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5):
+    """Per-(sample, channel) mean and inverse std, f32 (B, C) each (K4s)."""
+    if on_cpu(x):
+        return instance_norm_stats_plain(x, eps)
+    _check(x)
+    b, c = x.shape[:2]
+    mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    inv = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    _launch(x, None, mean, inv, eps, False)
+    return mean, inv
