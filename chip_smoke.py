@@ -1,24 +1,32 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (cista_flow_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
 Phases (any failure raises and the exit code is non-zero):
  1. the card: ``nvidia-smi`` name and power limit, torch's device name;
- 2. build the four CUDA kernels from ``cista_flow_torch/csrc`` (one nvcc
-    each, in parallel) into the ignored ``build/kernels``;
- 3. each kernel against its plain PyTorch version on the card, at the
-    flagship shapes (180x240 frames, batch 8), in bf16 and f32 with TF32
-    off: max abs error against a stated tolerance, and the median time of
-    the kernel, of the plain version and, where one PyTorch call computes
-    the same function, of that call (``library_ms``; the port never calls
-    it);
- 4. the main path: ``Reconstructor.step_window`` on the committed gate
-    weights at 180x240, at (iters, depth) = (1, 1) and (6, 5), 16 steps of
-    seeded voxels in f32 and bf16, with every kernel's launch count checked
-    and bf16 held above 30 dB PSNR against f32 at every step; the CUDA path
-    held against the same port on the CPU (plain versions) over 3 steps;
-    closed-loop frames/s at batch 8 in bf16 (3 reps).
+ 2. build the CUDA kernels from ``cista_flow_torch/csrc`` (one nvcc for each
+    source, in parallel) into the ignored ``build/kernels``;
+ 3. each of the eight kernels (K1, K2, K3, K3a, K4, K4s, K5, K6) against its
+    plain PyTorch version on the card, at the shapes the serving paths give
+    it (180x240 frames, batch 8), in bf16 and f32 with TF32 off: max abs
+    error against a stated tolerance, and the median time of the kernel, of
+    the plain version and, where one PyTorch call computes the same
+    function, of that call (``library_ms``; the port never calls it).
+    ``--kernels-only`` stops here;
+ 4. the flagship path: ``Reconstructor.step_window`` in ``cista-eiflow``
+    mode on the committed gate weights at 180x240, at (iters, depth) =
+    (1, 1) and (6, 5), 16 steps of seeded voxels in f32 and bf16, with every
+    kernel's launch count checked and bf16 held above 30 dB PSNR against
+    f32 at every step; the CUDA path held against the same port on the CPU
+    (plain versions) over 3 steps; closed-loop frames/s at batch 8 in bf16
+    (3 reps);
+ 4b. the ``cista-eraft`` path, the same checks at (1, 1) and (12, 5):
+    ``step_window`` is the time-parallel window there, and 16 calls of
+    ``step`` on the same voxels must agree with it;
+ 4c. variant windows (4 steps, f32, depth 5): the ISTA loop through K3a and
+    through K6, the encoders' norms through K4s, each held against the
+    default route.
 The last lines are the ``kernels`` JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -38,6 +46,9 @@ BATCH = 8
 STEPS = 16
 PSNR_MIN = 30.0          # the JAX package's bf16 drift rule (tests/test_bf16_drift.py)
 POINTS = ((1, 1, "gate/flagship_ft1_f16.npz"), (6, 5, "gate/flagship_sim40_f16.npz"))
+ERAFT_POINTS = ((1, 1, "gate/eraft_ft1_f16.npz"), (12, 5, "gate/eraft_sim40_f16.npz"))
+NORMS = 15               # instance norms in one BasicEncoder call
+SQUARE_CONVS = 7         # its 64->64 and 128->128 3x3 convs (kernel K5)
 HBM_BYTES_PER_S = 3.35e12                                    # H100 SXM
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}            # tensor-core bf16; f32 non-tensor
 
@@ -48,7 +59,28 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def main() -> int:
+# key -> (name, source, the pl.pallas_call site it replaces)
+KERNELS = {
+    "K1": ("corr_lookup_convc1", "cista_flow_torch/csrc/corr.cu",
+           "cista_flow_tpu/ops/pallas_corr.py:332"),
+    "K2": ("warp_reflect", "cista_flow_torch/csrc/warp.cu",
+           "cista_flow_tpu/ops/pallas_aug.py:61"),
+    "K3": ("ista_loop_dg", "cista_flow_torch/csrc/ista.cu",
+           "cista_flow_tpu/ops/pallas_ista2.py:302"),
+    "K3a": ("ista_loop_v2", "cista_flow_torch/csrc/ista.cu",
+            "cista_flow_tpu/ops/pallas_ista2.py:267"),
+    "K4": ("instance_norm", "cista_flow_torch/csrc/norm.cu",
+           "cista_flow_tpu/ops/pallas_norm.py:91"),
+    "K4s": ("instance_norm_stats", "cista_flow_torch/csrc/norm.cu",
+            "cista_flow_tpu/ops/pallas_norm.py:193"),
+    "K5": ("conv3x3", "cista_flow_torch/csrc/conv3x3.cu",
+           "cista_flow_tpu/ops/pallas_conv.py:136"),
+    "K6": ("ista_loop_one_launch", "cista_flow_torch/csrc/ista_loop.cu",
+           "cista_flow_tpu/ops/pallas_ista.py:110"),
+}
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -59,9 +91,13 @@ def main() -> int:
         print("chip_smoke: cista_flow_torch/ not found beside this script",
               file=sys.stderr)
         return 2
+    if argv not in ([], ["--kernels-only"]):
+        print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
+        return 2
     sys.path.insert(0, str(repo))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # ---- 1. the card ------------------------------------------------------
     smi = nvidia_smi()
@@ -71,35 +107,40 @@ def main() -> int:
           f"{torch.__version__}, cuda {torch.version.cuda}")
 
     # ---- 2. build ---------------------------------------------------------
-    from cista_flow_torch.ops import cuda_aug, cuda_build, cuda_corr, cuda_ista2, cuda_norm
-    kernels = {"K1": cuda_corr.KERNEL, "K2": cuda_aug.KERNEL,
-               "K3": cuda_ista2.KERNEL, "K4": cuda_norm.KERNEL}
-    secs = cuda_build.build_all(list(kernels.values()))
-    print(f"build: {secs:.1f} s for {len(kernels)} kernels")
-    for k in kernels.values():
+    from cista_flow_torch.ops import (cuda_aug, cuda_build, cuda_conv, cuda_corr, cuda_ista,
+                                      cuda_ista2, cuda_norm)
+    # each wrapper's launch counter; K3a and K4s share K3's and K4's library
+    counters = {"K1": cuda_corr.KERNEL, "K2": cuda_aug.KERNEL, "K3": cuda_ista2.KERNEL,
+                "K3a": cuda_ista2.KERNEL_V2, "K4": cuda_norm.KERNEL,
+                "K4s": cuda_norm.KERNEL_STATS, "K5": cuda_conv.KERNEL,
+                "K6": cuda_ista.KERNEL}
+    sources = [k for k in counters.values() if isinstance(k, cuda_build.Kernel)]
+    secs = cuda_build.build_all(sources)
+    print(f"build: {secs:.1f} s for {len(sources)} sources, {len(counters)} kernels")
+    for k in sources:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {k.name}: {line.strip()}")
 
     # ---- 3. kernels against their plain versions --------------------------
-    checks = kernel_checks(torch, cuda_aug, cuda_corr, cuda_ista2, cuda_norm)
+    checks = kernel_checks(torch)
     torch.cuda.synchronize()
+    print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
+    if argv:
+        return 0
 
-    # ---- 4. the main path -------------------------------------------------
-    launches = main_path(torch, repo, kernels)
+    # ---- 4. the main paths ------------------------------------------------
+    launches = {k: 0 for k in counters}
+    for phase in (flagship_path, eraft_path, variant_windows):
+        for key, n in phase(torch, repo, counters).items():
+            launches[key] += n
+        print(f"{phase.__name__} done at {time.perf_counter() - t_start:.1f} s")
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels launched on no path: {idle}")
 
     rows = []
-    meta = {
-        "K1": ("corr_lookup_convc1", "cista_flow_torch/csrc/corr.cu",
-               "cista_flow_tpu/ops/pallas_corr.py:332"),
-        "K2": ("warp_reflect", "cista_flow_torch/csrc/warp.cu",
-               "cista_flow_tpu/ops/pallas_aug.py:61"),
-        "K3": ("ista_loop_dg", "cista_flow_torch/csrc/ista.cu",
-               "cista_flow_tpu/ops/pallas_ista2.py:302"),
-        "K4": ("instance_norm", "cista_flow_torch/csrc/norm.cu",
-               "cista_flow_tpu/ops/pallas_norm.py:91"),
-    }
-    for key, (name, source, replaces) in meta.items():
+    for key, (name, source, replaces) in KERNELS.items():
         c = checks[key]
         rows.append({"name": f"{key} {name}", "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[key],
@@ -180,11 +221,13 @@ def window_entries(coords, sizes, radius: int = 4) -> int:
     return total
 
 
-def kernel_checks(torch, cuda_aug, cuda_corr, cuda_ista2, cuda_norm):
-    """Phase 3. Each kernel on seeded inputs at the flagship shapes; the
+def kernel_checks(torch):
+    """Phase 3. Each kernel on seeded inputs at the serving shapes; the
     plain version runs on the same inputs (upcast to f32 for bf16, so that
     the reference carries no bf16 rounding of its own)."""
     import torch.nn.functional as F
+    from cista_flow_torch.ops import (cuda_aug, cuda_conv, cuda_corr, cuda_ista, cuda_ista2,
+                                      cuda_norm)
     from cista_flow_torch.ops.corr import CorrPyramid, coords_grid
     from cista_flow_torch.ops.warp import frame_warp_coords
 
@@ -195,7 +238,7 @@ def kernel_checks(torch, cuda_aug, cuda_corr, cuda_ista2, cuda_norm):
         return torch.randn(*shape, generator=g, device=dev) * scale
 
     results = {}
-    print("kernels vs plain versions (batch 8, flagship shapes):")
+    print("kernels vs plain versions (batch 8, serving shapes):")
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         es = torch.tensor([], dtype=dt).element_size()
@@ -289,6 +332,25 @@ def kernel_checks(torch, cuda_aug, cuda_corr, cuda_ista2, cuda_norm):
             if depth == 5:
                 results[("K3", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                               bound_ms=bms, bound_by=by, library_ms=None)
+            # K3a (2*depth launches) and K6 (one cooperative launch): the loop alone
+            ref = cuda_ista2.ista_loop_plain(w32, x1.float(), z.float(), depth)
+            nbytes = (x1.numel() + z.numel() * 2 + sum(t.numel() for t in wts)) * es
+            ops = 2 * depth * 2 * 9 * (2 * c) * c * BATCH * hh * ww
+            bms, by = bound(nbytes, ops, dtype)
+            plain = time_ms(torch, lambda: cuda_ista2.ista_loop_plain(wts, x1, z, depth))
+            for key, fn in (("K3a", cuda_ista2.fused_ista_v2), ("K6", cuda_ista.fused_ista)):
+                z_before = z.clone()
+                out = fn(wts, x1, z, depth)
+                err = compare(torch, f"{key} ista loop depth {depth}", dtype, out, ref,
+                              f32_tol(ref) if dtype == "float32" else bf16_tol(ref, 8))
+                if not torch.equal(z, z_before):
+                    raise AssertionError(f"{key} modified its input z")
+                ms = time_ms(torch, lambda: fn(wts, x1, z, depth))
+                print(f"  {key} depth {depth} {dtype}: {ms:.4f} ms (plain {plain:.4f}, "
+                      f"bound {bms:.4f} by {by})")
+                if depth == 5:
+                    results[(key, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                                 bound_ms=bms, bound_by=by, library_ms=None)
 
         # K4: the encoders' three instance-norm shapes (+ the stats phase)
         for shape in ((BATCH, 64, 96, 128), (BATCH, 96, 48, 64), (BATCH, 128, 24, 32)):
@@ -300,8 +362,8 @@ def kernel_checks(torch, cuda_aug, cuda_corr, cuda_ista2, cuda_norm):
                               2e-5 if dtype == "float32" else bf16_tol(ref, 2))
             ref = cuda_norm.instance_norm_stats_plain(x.float())
             out = cuda_norm.instance_norm_stats(x)
-            compare(torch, f"K4s stats {shape[1:]}", dtype, out, ref,
-                    1e-4 if dtype == "float32" else 1e-3)
+            err_s = compare(torch, f"K4s stats {shape[1:]}", dtype, out, ref,
+                            1e-4 if dtype == "float32" else 1e-3)
             ms = time_ms(torch, lambda: cuda_norm.instance_norm_fused(x))
             plain = time_ms(torch, lambda: cuda_norm.instance_norm_plain(x))
             lib = time_ms(torch, lambda: F.instance_norm(x))
@@ -312,13 +374,50 @@ def kernel_checks(torch, cuda_aug, cuda_corr, cuda_ista2, cuda_norm):
             if shape[1] == 64:
                 results[("K4", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                               bound_ms=bms, bound_by=by, library_ms=lib)
-        for key in ("K1", "K2", "K3", "K4"):
+                plain_s = time_ms(torch, lambda: cuda_norm.instance_norm_stats_plain(x))
+                bms, by = bound(x.numel() * es + 8 * x.shape[0] * x.shape[1],
+                                4 * x.numel(), "float32")
+                results[("K4s", dtype)] = dict(max_abs_err=err_s, ms=ms_s, plain_ms=plain_s,
+                                               bound_ms=bms, bound_by=by, library_ms=None)
+        # a zero voxel's planes (a stream's first previous voxel) are constant:
+        # variance 0, so a rounding error of the mean (a few 1e-8) is scaled by
+        # 1/sqrt(eps) = 316; 1e-4 bounds it
+        const = torch.full((2, 64, 96, 128), 0.3, dtype=dt, device=dev)
+        compare(torch, "K4 norm of constant planes", dtype,
+                cuda_norm.instance_norm_fused(const),
+                cuda_norm.instance_norm_plain(const.float()), 1e-4)
+
+        # K5: the encoders' square convs (zeros) and the CISTA upsamp conv (reflect)
+        # (the 32-channel shape is on no path: it holds the direct inner product
+        # in bf16, which the routed widths leave for the tensor cores)
+        for shape, mode in (((BATCH, 64, 96, 128), "zeros"), ((BATCH, 128, 24, 32), "zeros"),
+                            ((BATCH, 64, H, W), "reflect"), ((2, 32, 21, 45), "reflect")):
+            c = shape[1]
+            x = randn(*shape).to(dt)
+            wk = randn(c, c, 3, 3, scale=(9 * c) ** -0.5).to(dt)
+            bk = randn(c, scale=0.1).to(dt)
+            for relu in (False, True):
+                ref = cuda_conv.conv3x3_plain(x.float(), wk.float(), bk.float(), mode, relu)
+                out = cuda_conv.conv3x3(x, wk, bk, mode, relu)
+                err = compare(torch, f"K5 conv3x3 {shape[1:]} {mode} relu={relu}", dtype,
+                              out, ref, f32_tol(ref) if dtype == "float32" else bf16_tol(ref, 2))
+            ms = time_ms(torch, lambda: cuda_conv.conv3x3(x, wk, bk, mode))
+            # the plain version is the library call here: F.conv2d (+ F.pad)
+            lib = time_ms(torch, lambda: cuda_conv.conv3x3_plain(x, wk, bk, mode))
+            nbytes = (2 * x.numel() + wk.numel() + bk.numel()) * es
+            bms, by = bound(nbytes, 2 * 9 * c * c * shape[0] * shape[2] * shape[3], dtype)
+            print(f"  K5 {shape} {mode} {dtype}: {ms:.4f} ms (F.conv2d {lib:.4f}, "
+                  f"bound {bms:.4f} by {by})")
+            if shape == (BATCH, 64, 96, 128):
+                results[("K5", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=lib,
+                                              bound_ms=bms, bound_by=by, library_ms=lib)
+        for key in KERNELS:
             r = results[(key, dtype)]
             print(f"  {key} {dtype}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library "
                   f"{r['library_ms']}")
     # the serving dtype's numbers go into the kernels line
-    return {key: results[(key, "bfloat16")] for key in ("K1", "K2", "K3", "K4")}
+    return {key: results[(key, "bfloat16")] for key in KERNELS}
 
 
 def voxels(seed: int, steps: int, batch: int = 1) -> np.ndarray:
@@ -330,74 +429,182 @@ def voxels(seed: int, steps: int, batch: int = 1) -> np.ndarray:
     return v[:, 0] if batch == 1 else v
 
 
-def main_path(torch, repo: Path, kernels: dict) -> dict:
-    """Phase 4. Returns each kernel's launches over the main-path runs."""
+def psnr_per_step(a, b):
+    return [10 * np.log10(1.0 / max(float(np.mean((x - y) ** 2)), 1e-12))
+            for x, y in zip(a, b)]
+
+
+def counted(counters: dict, fn):
+    """Run ``fn`` with every launch counter set to 0 just before; returns
+    (fn's result, {kernel: launches})."""
+    for k in counters.values():
+        k.launches = 0
+    out = fn()
+    return out, {key: k.launches for key, k in counters.items()}
+
+
+def expect_launches(tag: str, got: dict, want: dict) -> None:
+    want = {k: want.get(k, 0) for k in got}
+    print(f"  {tag}: launches {got}")
+    if got != want:
+        raise AssertionError(f"{tag}: launch counts {got}, expected {want}")
+
+
+def check_outputs(out, flows, steps: int) -> None:
+    if out.shape != (steps, H, W) or flows.shape != (steps, 2, H, W):
+        raise AssertionError(f"output shapes {out.shape} {flows.shape}")
+    if not (np.isfinite(out).all() and np.isfinite(flows).all()):
+        raise AssertionError("non-finite output")
+    if out.min() < 0.0 or out.max() > 1.0:
+        raise AssertionError("frames leave the sigmoid's [0, 1]")
+
+
+def serving_point(torch, repo, counters, mode, iters, depth, path, want_window,
+                  want_steps=None) -> dict:
+    """One (iters, depth) point of one model: 16-step windows in f32 and
+    bf16 at batch 1 with asserted launch counts and the PSNR rule; for
+    ``want_steps`` also 16 calls of ``step`` held against the window; CUDA
+    against the port on the CPU over 3 steps; frames/s at batch 8 in bf16.
+    Returns the launches of the counted runs."""
     from cista_flow_torch.config import Config
     from cista_flow_torch.runner import Reconstructor
 
-    total = {k: 0 for k in kernels}
-    print(f"main path: Reconstructor.step_window, {H}x{W}, {STEPS} steps")
-    for iters, depth, path in POINTS:
-        recs = {}
-        for dtype in ("float32", "bfloat16"):
-            cfg = Config(image_dim=(H, W), depth=depth, flow_iters=iters,
-                         dtype=dtype, path_to_test_model=str(repo / path))
-            rec = Reconstructor(cfg, device="cuda")
-            ev = voxels(1, STEPS)
-            for k in kernels.values():
-                k.launches = 0
-            out, flows = rec.step_window(ev, return_all=True)
-            got = {key: k.launches for key, k in kernels.items()}
-            want = {"K1": iters * STEPS, "K2": 2 * STEPS, "K3": STEPS, "K4": 30 * STEPS}
-            print(f"  ({iters},{depth}) {dtype}: launches {got}")
-            if got != want:
-                raise AssertionError(f"launch counts {got}, expected {want}")
-            for key in total:
-                total[key] += got[key]
-            if out.shape != (STEPS, H, W) or flows.shape != (STEPS, 2, H, W):
-                raise AssertionError(f"output shapes {out.shape} {flows.shape}")
-            if not (np.isfinite(out).all() and np.isfinite(flows).all()):
-                raise AssertionError("non-finite output")
-            if out.min() < 0.0 or out.max() > 1.0:
-                raise AssertionError("frames leave the sigmoid's [0, 1]")
-            recs[dtype] = out
-        psnr = [10 * np.log10(1.0 / max(float(np.mean((a - b) ** 2)), 1e-12))
-                for a, b in zip(recs["float32"], recs["bfloat16"])]
-        print(f"  ({iters},{depth}) bf16 vs f32 PSNR per step (dB): min "
-              f"{min(psnr):.2f}, " + " ".join(f"{p:.1f}" for p in psnr))
-        if min(psnr) <= PSNR_MIN:
-            raise AssertionError(f"bf16 drift: PSNR {min(psnr):.2f} <= {PSNR_MIN}")
+    def config(dtype="float32"):
+        return Config(image_dim=(H, W), model_mode=mode, depth=depth, flow_iters=iters,
+                      dtype=dtype, path_to_test_model=str(repo / path))
 
-        # the kernels' path against the plain versions, end to end (f32)
-        cfg = Config(image_dim=(H, W), depth=depth, flow_iters=iters,
-                     path_to_test_model=str(repo / path))
-        ev = voxels(2, 3)
-        gpu = Reconstructor(cfg, device="cuda").step_window(ev, return_all=True)
-        cpu = Reconstructor(cfg, device="cpu").step_window(ev, return_all=True)
-        err = max(float(np.abs(a - b).max()) for a, b in zip(gpu, cpu))
-        print(f"  ({iters},{depth}) f32 cuda vs cpu plain, 3 steps: max abs err "
-              f"{err:.3e} (tol 1e-3)")
+    tag = f"{mode} ({iters},{depth})"
+    total = {k: 0 for k in counters}
+    recs = {}
+    ev = voxels(1, STEPS)
+    for dtype in ("float32", "bfloat16"):
+        rec = Reconstructor(config(dtype), device="cuda")
+        (out, flows), got = counted(
+            counters, lambda: rec.step_window(ev, return_all=True))
+        expect_launches(f"{tag} {dtype} window", got, want_window)
+        for key in total:
+            total[key] += got[key]
+        check_outputs(out, flows, STEPS)
+        recs[dtype] = (out, flows)
+    psnr = psnr_per_step(recs["float32"][0], recs["bfloat16"][0])
+    print(f"  {tag} bf16 vs f32 PSNR per step (dB): min {min(psnr):.2f}, "
+          + " ".join(f"{p:.1f}" for p in psnr))
+    if min(psnr) <= PSNR_MIN:
+        raise AssertionError(f"bf16 drift: PSNR {min(psnr):.2f} <= {PSNR_MIN}")
+
+    if want_steps is not None:
+        # stepping encodes each voxel pair anew at batch B where the window
+        # runs T*B samples at once: cuDNN and cuBLAS may pick other
+        # algorithms for the two batch sizes, so f32 sums differ in order
+        rec = Reconstructor(config(), device="cuda")
+        seq, got = counted(counters, lambda: [rec.step(v) for v in ev])
+        expect_launches(f"{tag} float32 {STEPS} x step", got, want_steps)
+        for key in total:
+            total[key] += got[key]
+        err = max(max(float(np.abs(r - recs["float32"][0][t]).max()),
+                      float(np.abs(f - recs["float32"][1][t]).max()))
+                  for t, (r, f) in enumerate(seq))
+        print(f"  {tag} f32 {STEPS} x step vs the window: max abs err {err:.3e} (tol 1e-3)")
         if err > 1e-3:
-            raise AssertionError(f"cuda path differs from the plain path by {err}")
+            raise AssertionError(f"stepping differs from the window by {err}")
 
-        # closed-loop frames/s, batch 8, bf16
-        cfg = Config(image_dim=(H, W), depth=depth, flow_iters=iters,
-                     dtype="bfloat16", path_to_test_model=str(repo / path))
-        rec = Reconstructor(cfg, device="cuda", batch=BATCH)
-        ev = rec.device_events(voxels(3, STEPS, BATCH))
-        rec.run_window(ev)
-        fps = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rec.run_window(ev)
-            torch.cuda.synchronize()
-            fps.append(STEPS * BATCH / (time.perf_counter() - t0))
-        med = statistics.median(fps)
-        print(f"  ({iters},{depth}) closed loop bf16 batch {BATCH}: {med:.1f} frames/s "
-              f"median of 3 (spread {min(fps):.1f}..{max(fps):.1f}) on {nvidia_smi()}")
+    # the kernels' path against the plain versions, end to end (f32)
+    ev3 = voxels(2, 3)
+    gpu = Reconstructor(config(), device="cuda").step_window(ev3, return_all=True)
+    cpu = Reconstructor(config(), device="cpu").step_window(ev3, return_all=True)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(gpu, cpu))
+    print(f"  {tag} f32 cuda vs cpu plain, 3 steps: max abs err {err:.3e} (tol 1e-3)")
+    if err > 1e-3:
+        raise AssertionError(f"cuda path differs from the plain path by {err}")
+
+    # closed-loop frames/s, batch 8, bf16
+    rec = Reconstructor(config("bfloat16"), device="cuda", batch=BATCH)
+    evb = rec.device_events(voxels(3, STEPS, BATCH))
+    rec.run_window(evb)
+    fps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec.run_window(evb)
+        torch.cuda.synchronize()
+        fps.append(STEPS * BATCH / (time.perf_counter() - t0))
+    print(f"  {tag} closed loop bf16 batch {BATCH}: {statistics.median(fps):.1f} frames/s "
+          f"median of 3 (spread {min(fps):.1f}..{max(fps):.1f}) on {nvidia_smi()}")
+    return total
+
+
+def flagship_path(torch, repo: Path, counters: dict) -> dict:
+    """Phase 4: cista-eiflow. Per step: K1 per GRU iteration, the two warps,
+    one ISTA call, fnet's and enet's norms, and K5 for the three encoders'
+    square convs and the upsamp conv."""
+    print(f"flagship path: Reconstructor.step_window, cista-eiflow, {H}x{W}, {STEPS} steps")
+    total = {k: 0 for k in counters}
+    for iters, depth, path in POINTS:
+        want = {"K1": iters * STEPS, "K2": 2 * STEPS, "K3": STEPS,
+                "K4": 2 * NORMS * STEPS, "K5": (3 * SQUARE_CONVS + 1) * STEPS}
+        got = serving_point(torch, repo, counters, "cista-eiflow", iters, depth, path, want)
+        for key in total:
+            total[key] += got[key]
+    return total
+
+
+def eraft_path(torch, repo: Path, counters: dict) -> dict:
+    """Phase 4b: cista-eraft. The window runs fnet once over its T+1 voxels
+    and cnet once over T, then one flow call (K1 per GRU iteration), then T
+    warps and reconstructions; stepping runs fnet (one 2B call) and cnet
+    in every step."""
+    print(f"cista-eraft path: time-parallel step_window and step, {H}x{W}, {STEPS} steps")
+    total = {k: 0 for k in counters}
+    for iters, depth, path in ERAFT_POINTS:
+        window = {"K1": iters, "K2": 2 * STEPS, "K3": STEPS, "K4": NORMS,
+                  "K5": 2 * SQUARE_CONVS + STEPS}
+        steps = {"K1": iters * STEPS, "K2": 2 * STEPS, "K3": STEPS, "K4": NORMS * STEPS,
+                 "K5": (2 * SQUARE_CONVS + 1) * STEPS}
+        got = serving_point(torch, repo, counters, "cista-eraft", iters, depth, path,
+                            window, steps)
+        for key in total:
+            total[key] += got[key]
+    return total
+
+
+def variant_windows(torch, repo: Path, counters: dict) -> dict:
+    """Phase 4c: the routes that reach K3a, K6 and K4s, on cista-eraft at
+    (12, 5), 4 steps, batch 1, f32. Each route computes the default route's
+    function with other kernels (K3a and K6: the Dg conv goes to cuDNN
+    instead of K3's last launch; K4s: the normalise is PyTorch elementwise
+    ops), so frames and flows agree to f32 rounding carried through 4
+    closed-loop steps: 1e-3, the CUDA-against-CPU tolerance."""
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.runner import Reconstructor
+
+    iters, depth, path = ERAFT_POINTS[1]
+    steps = 4
+    cfg = Config(image_dim=(H, W), model_mode="cista-eraft", depth=depth, flow_iters=iters,
+                 path_to_test_model=str(repo / path))
+    ev = voxels(4, steps)
+    print(f"variant windows: cista-eraft ({iters},{depth}), {steps} steps, f32")
+    base = {"K1": iters, "K2": 2 * steps, "K3": steps, "K4": NORMS,
+            "K5": 2 * SQUARE_CONVS + steps}
+    ref = Reconstructor(cfg, device="cuda").step_window(ev, return_all=True)
+    total = {k: 0 for k in counters}
+    for tag, ista, norm, change in (
+            ("ISTA loop through K3a", "v2", "fused", {"K3": 0, "K3a": steps}),
+            ("ISTA loop through K6", "loop", "fused", {"K3": 0, "K6": steps}),
+            ("fnet norms through K4s", "dg", "stats", {"K4": 0, "K4s": NORMS})):
+        rec = Reconstructor(cfg, device="cuda")
+        rec.model.cista_net.ista_route = ista
+        rec.model.event_flownet.fnet.norm_route = norm
+        out, got = counted(counters, lambda: rec.step_window(ev, return_all=True))
+        expect_launches(tag, got, {**base, **change})
+        check_outputs(*out, steps)
+        err = max(float(np.abs(a - b).max()) for a, b in zip(out, ref))
+        print(f"  {tag} vs the default route: max abs err {err:.3e} (tol 1e-3)")
+        if err > 1e-3:
+            raise AssertionError(f"{tag}: differs from the default route by {err}")
+        for key in total:
+            total[key] += got[key]
     return total
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

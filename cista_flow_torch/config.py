@@ -1,7 +1,7 @@
 """The configuration fields the serving step reads.
 
 A copy of the subset of ``cista_flow_tpu.configs.Config`` (same names, same
-defaults) that the cista-eiflow serving path consumes; the port imports
+defaults) that the cista-eiflow and cista-eraft serving paths consume; the port imports
 nothing of the JAX package.
 """
 from __future__ import annotations
@@ -22,6 +22,7 @@ class Config:
     dtype: str = "float32"           # float32 | bfloat16
     flow_iters: int | None = None    # override of the flow GRU iterations
     path_to_test_model: str | None = None
+    eraft_tchunk: int = 0            # cista-eraft window: time steps per flow call (0 = all)
     seed: int = 1234
 
     def default_flow_iters(self) -> int:

@@ -20,7 +20,8 @@
 // The (n, 324) window never reaches device memory. f32 accumulation on the
 // CUDA cores; wgmma is later work. Coordinates far outside a level cannot
 // index out of bounds: a tap whose position is not in (-1, size) reads 0
-// without a load.
+// without a load. The same test makes an empty level (h or w of 0, the last
+// level of a frame under 64 px) read as zeros: no corner of it is in range.
 #include "common.cuh"
 
 namespace {

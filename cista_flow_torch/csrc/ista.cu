@@ -10,27 +10,20 @@
 //   mode 1 (P):  out = softshrink(conv(x1 - D(z)) + b + z, lambda)
 //   mode 2 (Dg): out = relu(conv(z) + b)
 // so no intermediate other than x1 - D(z) and z itself reaches device
-// memory. Fusing all launches into one persistent kernel is later work.
+// memory. The whole loop in one persistent launch is K6 (ista_loop.cu).
+// K3a (the loop alone, pallas_ista2.py _fused_pallas / fused_ista_v2) is 2*depth
+// launches of modes 0 and 1 from its own wrapper in the same module.
 //
 // Bound on the H100: operations. At the flagship shapes (C=64, 90x120) a
 // conv does 2*9*128*64 = 147k flops per pixel against ~0.5 KB of traffic.
-// This first kernel runs its FMAs on the CUDA cores in f32 (also for bf16
-// data, which is converted on load), so it is far from the bf16 tensor-core
-// bound; wgmma tiles are later work. Design: a block computes a 16x32 pixel
-// tile for 16 output channels; input channels stream through shared memory
-// 8 at a time with the reflect halo resolved from indices (no padded copy);
-// each thread keeps 4 pixels x 16 channels of f32 accumulators, reading
-// weights as float4 broadcasts.
-#include "common.cuh"
+// The conv tile (conv3x3_direct.cuh) runs its FMAs on the CUDA cores in f32
+// (also for bf16 data, which is converted on load), so it is far from the
+// bf16 tensor-core bound.
+#include "conv3x3_direct.cuh"
 
 namespace {
 
-constexpr int TH = 16, TW = 32;      // output tile
-constexpr int PX = 4;                // pixels per thread, strided along x
-constexpr int TXN = TW / PX;         // threads along x
-constexpr int NT = TH * TXN;         // 128 threads
-constexpr int CO = 16;               // output channels per block
-constexpr int CI = 8;                // input channels per shared-memory stage
+using namespace conv3x3;
 
 enum { MODE_D = 0, MODE_P = 1, MODE_G = 2 };
 
@@ -40,91 +33,30 @@ conv3x3_reflect_kernel(const T* __restrict__ x, const T* __restrict__ w,
                        const T* __restrict__ bias, const T* aux,
                        const T* __restrict__ lam, T* out,
                        int Cin, int Cout, int H, int W) {
-    __shared__ float xs[CI][TH + 2][TW + 2];
-    __shared__ __align__(16) float ws[CI][9][CO];
-
-    const int tx = threadIdx.x % TXN, ty = threadIdx.x / TXN;
+    __shared__ Stage sm;
     const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
     const int groups = Cout / CO;
     const int b = blockIdx.z / groups;
     const int co0 = (blockIdx.z % groups) * CO;
     const long long hw = static_cast<long long>(H) * W;
-    const T* xb = x + static_cast<long long>(b) * Cin * hw;
 
     float acc[PX][CO];
-#pragma unroll
-    for (int j = 0; j < PX; ++j)
-#pragma unroll
-        for (int c = 0; c < CO; ++c) acc[j][c] = 0.f;
-
-    constexpr int TILE = (TH + 2) * (TW + 2);
-    for (int c0 = 0; c0 < Cin; c0 += CI) {
-        for (int i = threadIdx.x; i < CI * TILE; i += NT) {
-            const int ci = i / TILE, r = i - ci * TILE;
-            const int yy = r / (TW + 2), xx = r - yy * (TW + 2);
-            const int gy = reflect_clamp(y0 + yy - 1, H);
-            const int gx = reflect_clamp(x0 + xx - 1, W);
-            xs[ci][yy][xx] = to_f(xb[(c0 + ci) * hw + static_cast<long long>(gy) * W + gx]);
+    accumulate<T, true>(sm, x + static_cast<long long>(b) * Cin * hw, w, Cin, H, W,
+                        x0, y0, co0, acc);
+    store_tile(acc, H, W, x0, y0, [&](int c, long long pix, float v) {
+        const long long o = (static_cast<long long>(b) * Cout + co0 + c) * hw + pix;
+        v += to_f(bias[co0 + c]);
+        if (MODE == MODE_D) {
+            v = to_f(aux[o]) - v;
+        } else if (MODE == MODE_P) {
+            // aux (z) may alias out: each element is read by the thread
+            // that overwrites it, just before the store
+            v = softshrink(v + to_f(aux[o]), to_f(lam[co0 + c]));
+        } else {
+            v = fmaxf(v, 0.f);
         }
-        // weights are OIHW (Cout, Cin, 3, 3); stage as [ci][tap][co]
-        for (int i = threadIdx.x; i < CI * 9 * CO; i += NT) {
-            const int co = i / (CI * 9), r = i - co * (CI * 9);
-            const int ci = r / 9, tap = r - ci * 9;
-            ws[ci][tap][co] = to_f(w[(static_cast<long long>(co0 + co) * Cin + c0 + ci) * 9 + tap]);
-        }
-        __syncthreads();
-#pragma unroll 2
-        for (int ci = 0; ci < CI; ++ci) {
-#pragma unroll
-            for (int ky = 0; ky < 3; ++ky) {
-#pragma unroll
-                for (int kx = 0; kx < 3; ++kx) {
-                    float xv[PX];
-#pragma unroll
-                    for (int j = 0; j < PX; ++j) xv[j] = xs[ci][ty + ky][tx + j * TXN + kx];
-                    const float4* wp = reinterpret_cast<const float4*>(&ws[ci][ky * 3 + kx][0]);
-#pragma unroll
-                    for (int q = 0; q < CO / 4; ++q) {
-                        const float4 wv = wp[q];
-#pragma unroll
-                        for (int j = 0; j < PX; ++j) {
-                            acc[j][4 * q + 0] += xv[j] * wv.x;
-                            acc[j][4 * q + 1] += xv[j] * wv.y;
-                            acc[j][4 * q + 2] += xv[j] * wv.z;
-                            acc[j][4 * q + 3] += xv[j] * wv.w;
-                        }
-                    }
-                }
-            }
-        }
-        __syncthreads();
-    }
-
-    const int py = y0 + ty;
-    if (py >= H) return;
-#pragma unroll
-    for (int j = 0; j < PX; ++j) {
-        const int px = x0 + tx + j * TXN;
-        if (px >= W) continue;
-#pragma unroll
-        for (int c = 0; c < CO; ++c) {
-            const long long o = (static_cast<long long>(b) * Cout + co0 + c) * hw
-                                + static_cast<long long>(py) * W + px;
-            float v = acc[j][c] + to_f(bias[co0 + c]);
-            if (MODE == MODE_D) {
-                v = to_f(aux[o]) - v;
-            } else if (MODE == MODE_P) {
-                // aux (z) may alias out: each element is read by the thread
-                // that overwrites it, just before the store
-                v = v + to_f(aux[o]);
-                const float l = to_f(lam[co0 + c]);
-                v = fmaxf(v - l, 0.f) - fmaxf(-v - l, 0.f);
-            } else {
-                v = fmaxf(v, 0.f);
-            }
-            out[o] = from_f<T>(v);
-        }
-    }
+        out[o] = from_f<T>(v);
+    });
 }
 
 template <typename T>

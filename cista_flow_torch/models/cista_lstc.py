@@ -4,6 +4,8 @@ Counterpart of cista_flow_tpu/models/cista_lstc.py (ref:
 e2v/e2v_model.py:10-98): event/image heads -> stride-2 fusion -> ConvLSTC
 initial sparse code -> ``depth`` weight-tied ISTA iterations + the Dg conv
 (kernel K3 on the card) -> ConvLSTM -> bilinear x2 decoder -> sigmoid.
+``ista_route`` selects the two other kernels that compute the loop (K3a,
+K6), each followed by the Dg conv as a plain conv + relu.
 
 The reference registers its one ISTA block ``depth`` times, as
 ``lista_blocks.{0..depth-1}``; so does this module (one shared parameter
@@ -17,7 +19,12 @@ import torch
 import torch.nn as nn
 
 from ..nn.layers import ConvLayer, ConvLSTC, IstaBlock, RecurrentConvLayer, UpsampleConvLayer
-from ..ops.cuda_ista2 import fused_ista_dg
+from ..ops.conv import conv2d
+from ..ops.cuda_ista import fused_ista
+from ..ops.cuda_ista2 import fused_ista_dg, fused_ista_v2
+
+# the ISTA loop's routes: K3 (loop + Dg, the default), K3a and K6 (loop alone)
+ISTA_ROUTES = {"dg": None, "v2": fused_ista_v2, "loop": fused_ista}
 
 
 class CistaState(NamedTuple):
@@ -42,6 +49,7 @@ class CistaLSTC(nn.Module):
         super().__init__()
         c = base_channels
         self.depth = depth
+        self.ista_route = "dg"
         self.We = ConvLayer(num_bins, c // 2)
         self.Wi = ConvLayer(1, c // 2)
         self.W0 = ConvLayer(c, c, stride=2)
@@ -61,8 +69,14 @@ class CistaLSTC(nn.Module):
 
         block = self.lista_blocks[0]
         dg = self.Dg.conv.conv2d
-        z, rec = fused_ista_dg(block.kernel_weights(), dg.weight, dg.bias,
-                               x1, z, self.depth)
+        loop = ISTA_ROUTES[self.ista_route]
+        if loop is None:
+            z, rec = fused_ista_dg(block.kernel_weights(), dg.weight, dg.bias,
+                                   x1, z, self.depth)
+        else:
+            z = loop(block.kernel_weights(), x1, z, self.depth)
+            rec = conv2d(z, dg.weight, dg.bias, padding=1,
+                         padding_mode="reflect", relu=True)
         hidden, cell = self.Dg.recurrent_block(rec, (state.dg_hidden, state.dg_cell))
 
         h, w = events.shape[2:]

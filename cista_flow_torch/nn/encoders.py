@@ -3,8 +3,11 @@
 Counterpart of cista_flow_tpu/nn/encoders.py ``residual_block`` and
 ``basic_encoder`` (ref: DCEIFlow/core/backbone/raft_encoder.py:125-203),
 with instance norm (kernel K4 on the card) or eval-mode batch norm. Convs
-are zero-padded. Module names follow the reference, so its state dicts
-load with ``strict=True``.
+are zero-padded; the square 64- and 128-channel ones are kernel K5 on the
+card. Module names follow the reference, so its state dicts load with
+``strict=True``. An encoder's ``norm_route`` selects how its instance norms
+run: "fused" (K4, the default) or "stats" (K4s, then a plain elementwise
+normalise), the two routes of the JAX package's ``conv.instance_norm``.
 """
 from __future__ import annotations
 
@@ -12,14 +15,18 @@ import torch
 import torch.nn as nn
 
 from ..ops.conv import batch_norm, conv2d, instance_norm
+from ..ops.cuda_norm import instance_norm_from_stats
+
+NORM_ROUTES = {"fused": instance_norm, "stats": instance_norm_from_stats}
 
 
 class _Normed(nn.Module):
     norm_fn = "instance"
+    _norm_route = "fused"
 
     def norm(self, x, bn: nn.BatchNorm2d | None, relu: bool):
         if self.norm_fn == "instance":
-            return instance_norm(x, relu=relu)
+            return NORM_ROUTES[self._norm_route](x, relu=relu)
         y = batch_norm(x, bn)
         return torch.relu(y) if relu else y
 
@@ -74,6 +81,19 @@ class BasicEncoder(_Normed):
                 ResidualBlock(cin, cout, norm_fn, stride),
                 ResidualBlock(cout, cout, norm_fn, 1)))
         self.conv2 = nn.Conv2d(128, output_dim, 1)
+
+    @property
+    def norm_route(self) -> str:
+        return self._norm_route
+
+    @norm_route.setter
+    def norm_route(self, route: str) -> None:
+        """Applies to this encoder's own norm and its residual blocks'."""
+        if route not in NORM_ROUTES:
+            raise ValueError(f"norm_route {route!r} not in {sorted(NORM_ROUTES)}")
+        for m in self.modules():
+            if isinstance(m, _Normed):
+                m._norm_route = route
 
     def forward(self, x):
         y = conv2d(x, self.conv1.weight, self.conv1.bias, self.stride1, 3)

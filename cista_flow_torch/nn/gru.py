@@ -1,9 +1,11 @@
-"""DCEIFlow's update block: event motion encoder, SepConvGRU, flow head.
+"""RAFT update blocks: motion encoders, SepConvGRU, flow and mask heads.
 
 Counterpart of cista_flow_tpu/nn/gru.py ``flow_head``, ``sep_conv_gru``,
 ``basic_motion_encoder_event``, ``precompute_update_ema`` and
-``basic_update_block_event`` (ref: DCEIFlow/core/decoder/
-with_event_updater.py). Zero-padded convs, NCHW, reference module names.
+``basic_update_block_event`` (DCEIFlow, ref: DCEIFlow/core/decoder/
+with_event_updater.py), and ``basic_motion_encoder``, ``mask_head`` and
+``basic_update_block`` (E-RAFT, ref: ERAFT/update.py). Zero-padded convs,
+NCHW, reference module names.
 """
 from __future__ import annotations
 
@@ -96,3 +98,60 @@ class BasicUpdateBlockEvent(nn.Module):
         motion = self.encoder(flow, ema, cor)
         net = self.gru(net, torch.cat([inp, motion], 1))
         return net, self.flow_head(net)
+
+
+class BasicMotionEncoder(nn.Module):
+    """Event-free motion encoder (ref: ERAFT/update.py:63-81). With
+    ``corr_projected`` the correlation features already carry
+    relu(convc1(lookup)), fused into kernel K1."""
+
+    def __init__(self, cor_planes=324):
+        super().__init__()
+        self.convc1 = nn.Conv2d(cor_planes, 256, 1)
+        self.convc2 = nn.Conv2d(256, 192, 3)
+        self.convf1 = nn.Conv2d(2, 128, 7)
+        self.convf2 = nn.Conv2d(128, 64, 3)
+        self.conv = nn.Conv2d(64 + 192, 128 - 2, 3)
+
+    def forward(self, flow, cor, corr_projected=False):
+        if not corr_projected:
+            cor = torch.relu(_conv(self.convc1, cor))
+        cor = torch.relu(_conv(self.convc2, cor, 1))
+        flo = torch.relu(_conv(self.convf1, flow, 3))
+        flo = torch.relu(_conv(self.convf2, flo, 1))
+        out = torch.relu(_conv(self.conv, torch.cat([cor, flo], 1), 1))
+        return torch.cat([out, flow], 1)
+
+
+class MaskHead(nn.Sequential):
+    """conv3x3 -> relu -> conv1x1 to the 9*64 convex-upsampling logits; a
+    Sequential, so its parameters are ``0.*`` and ``2.*`` as in the
+    reference (ref: ERAFT/update.py:92-95)."""
+
+    def __init__(self, hidden_dim=128, out_ch=64 * 9):
+        super().__init__(nn.Conv2d(hidden_dim, 256, 3), nn.ReLU(),
+                         nn.Conv2d(256, out_ch, 1))
+
+    def forward(self, x):
+        return _conv(self[2], torch.relu(_conv(self[0], x, 1)))
+
+
+class BasicUpdateBlock(nn.Module):
+    """E-RAFT's update block with the upsampling mask (ref:
+    ERAFT/update.py:84-106). The flow and mask heads stay separate convs."""
+
+    def __init__(self, cor_planes=324, hidden_dim=128):
+        super().__init__()
+        self.encoder = BasicMotionEncoder(cor_planes)
+        self.gru = SepConvGRU(hidden_dim, 128 + hidden_dim)
+        self.flow_head = FlowHead(hidden_dim, 256)
+        self.mask = MaskHead(hidden_dim, 64 * 9)
+
+    def forward(self, net, inp, cor, flow, corr_projected=False):
+        """Returns (net, mask, delta_flow); the mask logits are scaled by
+        0.25 as in the reference."""
+        cor = cor.to(net.dtype)
+        flow = flow.to(net.dtype)
+        motion = self.encoder(flow, cor, corr_projected)
+        net = self.gru(net, torch.cat([inp, motion], 1))
+        return net, 0.25 * self.mask(net), self.flow_head(net)

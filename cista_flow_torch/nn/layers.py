@@ -20,8 +20,12 @@ __all__ = ["softshrink", "ConvLayer", "UpsampleConvLayer", "ConvLSTC",
            "ConvLSTM", "IstaBlock", "RecurrentConvLayer"]
 
 
-def _conv(m: nn.Conv2d, x, stride=1, padding=0, mode="reflect"):
-    return conv2d(x, m.weight, m.bias, stride, padding, mode)
+def _conv(m: nn.Conv2d, x, stride=1, padding=0, activation=None):
+    """Reflect-padded conv + activation; a relu goes into the conv call
+    (fused where the conv is kernel K5)."""
+    relu = activation == "relu"
+    y = conv2d(x, m.weight, m.bias, stride, padding, "reflect", relu=relu)
+    return y if relu else _ACTS[activation](y)
 
 
 class ConvLayer(nn.Module):
@@ -34,8 +38,7 @@ class ConvLayer(nn.Module):
         self.stride, self.padding, self.activation = stride, padding, activation
 
     def forward(self, x):
-        y = _conv(self.conv2d, x, self.stride, self.padding)
-        return _ACTS[self.activation](y)
+        return _conv(self.conv2d, x, self.stride, self.padding, self.activation)
 
 
 class UpsampleConvLayer(nn.Module):
@@ -51,8 +54,8 @@ class UpsampleConvLayer(nn.Module):
         h, w = x.shape[2:]
         target = out_hw if out_hw is not None else (2 * h, 2 * w)
         pad = (self.conv2d.kernel_size[0] - 1) // 2
-        y = resize_bilinear(x, target, align_corners=False, reflect_pad=pad)
-        return _ACTS[self.activation](_conv(self.conv2d, y, mode="zeros"))
+        y = resize_bilinear(x, target, align_corners=False)
+        return _conv(self.conv2d, y, padding=pad, activation=self.activation)
 
 
 class ConvLSTC(nn.Module):

@@ -10,11 +10,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
+
+from .pool import avg_pool2
 
 
 class CorrPyramid(NamedTuple):
-    levels: tuple   # each (B*H1*W1, h_l, w_l)
+    levels: tuple   # each (B*H1*W1, h_l, w_l); a small frame's last may be empty
     batch: int
     h1: int
     w1: int
@@ -31,7 +32,7 @@ def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
     corr = corr.to(fmap1.dtype).reshape(b * h * w, h, w)
     levels = [corr]
     for _ in range(num_levels - 1):
-        corr = F.avg_pool2d(corr[:, None].float(), 2, 2)[:, 0].to(fmap1.dtype)
+        corr = avg_pool2(corr)
         levels.append(corr)
     return CorrPyramid(tuple(levels), b, h, w)
 
@@ -52,6 +53,9 @@ def lookup_corr(pyr: CorrPyramid, coords: torch.Tensor,
     out = []
     for i, level in enumerate(pyr.levels):
         _, hl, wl = level.shape
+        if hl * wl == 0:                     # an empty level is all outside
+            out.append(torch.zeros((n, k * k), device=coords.device))
+            continue
         px = (cx / (2.0 ** i))[:, None] + d[None]        # (n, k) by x offset
         py = (cy / (2.0 ** i))[:, None] + d[None]        # (n, k) by y offset
         x0 = torch.floor(px)

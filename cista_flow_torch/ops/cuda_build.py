@@ -3,7 +3,7 @@
 Each ``csrc/*.cu`` file is compiled on first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``build/kernels/<name>-<hash>.so`` at the repo root (the hash covers the
-source and ``common.cuh``, so an edited source rebuilds), and loaded with
+source and every ``*.cuh`` header, so an edited source rebuilds), and loaded with
 ctypes. Device pointers and the stream go in as ``c_void_p``; each C
 function returns ``cudaGetLastError()`` and a non-zero code raises.
 
@@ -64,7 +64,8 @@ class Kernel:
 
     def so_path(self) -> Path:
         h = hashlib.sha1(self.source.read_bytes())
-        h.update((CSRC / "common.cuh").read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:12]}.so"
 
@@ -112,6 +113,23 @@ class Kernel:
     def launch(self, fn: str, *args) -> None:
         """``call`` and count it as one launch of this kernel."""
         self.call(fn, *args)
+        self.launches += 1
+
+
+class SharedKernel:
+    """A second wrapper over a library that another ``Kernel`` builds, with
+    a launch count of its own (K3a beside K3 in ista.cu, K4s beside K4 in
+    norm.cu)."""
+
+    def __init__(self, kernel: Kernel):
+        self.kernel = kernel
+        self.launches = 0
+
+    def call(self, fn: str, *args) -> None:
+        self.kernel.call(fn, *args)
+
+    def launch(self, fn: str, *args) -> None:
+        self.kernel.call(fn, *args)
         self.launches += 1
 
 

@@ -34,7 +34,9 @@ def lookup(pyr: CorrPyramid, coords: torch.Tensor, weight=None,
     """coords: (B, 2, H1, W1) f32 level-0 pixel coords. Without ``weight``
     returns the (B, 324, H1, W1) windows; with the convc1 ``weight``
     (256, 324, 1, 1) and ``bias`` (256,) returns relu(convc1(windows)),
-    (B, 256, H1, W1). Output in the pyramid's dtype."""
+    (B, 256, H1, W1). Output in the pyramid's dtype. A level may be empty
+    (0 rows or columns: a frame under 64 px); it contributes zeros, as taps
+    outside a level do."""
     if on_cpu(coords):
         return lookup_plain(pyr, coords, weight, bias)
     levels = pyr.levels
@@ -43,7 +45,7 @@ def lookup(pyr: CorrPyramid, coords: torch.Tensor, weight=None,
     if len(levels) != LEVELS or two != 2 or coords.dtype != torch.float32:
         raise ValueError("corr kernel needs 4 levels and f32 (B, 2, H1, W1) coords")
     for lv in levels:
-        if lv.dim() != 3 or lv.shape[0] != n or lv.numel() == 0:
+        if lv.dim() != 3 or lv.shape[0] != n:
             raise ValueError(f"corr kernel: level shape {tuple(lv.shape)} does not "
                              f"match {n} samples")
     dt = levels[0].dtype

@@ -8,9 +8,11 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import DTYPE_CODES, F, I, Kernel, LL, P, check_cuda, on_cpu, stream_ptr
+from .cuda_build import (DTYPE_CODES, F, I, Kernel, LL, P, SharedKernel, check_cuda,
+                         on_cpu, stream_ptr)
 
 KERNEL = Kernel("norm.cu", {"cista_instance_norm": [I, P, P, P, P, LL, I, F, I, P]})
+KERNEL_STATS = SharedKernel(KERNEL)     # K4s: the same source, its own count
 
 
 def instance_norm_stats_plain(x: torch.Tensor, eps: float = 1e-5):
@@ -31,10 +33,22 @@ def instance_norm_plain(x: torch.Tensor, eps: float = 1e-5,
     return y.to(x.dtype)
 
 
-def _launch(x, y, mean, inv, eps, relu):
+def instance_norm_from_stats(x: torch.Tensor, eps: float = 1e-5,
+                             relu: bool = False) -> torch.Tensor:
+    """The second route to the same function: statistics from K4s, then the
+    normalisation as plain elementwise ops (counterpart of pallas_norm's
+    ``instance_norm_statskernel``)."""
+    mean, inv = instance_norm_stats(x, eps)
+    y = (x.float() - mean[:, :, None, None]) * inv[:, :, None, None]
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype)
+
+
+def _launch(kernel, x, y, mean, inv, eps, relu):
     b, c, h, w = x.shape
     with torch.cuda.device(x.device):
-        KERNEL.launch("cista_instance_norm", DTYPE_CODES[x.dtype], x.data_ptr(),
+        kernel.launch("cista_instance_norm", DTYPE_CODES[x.dtype], x.data_ptr(),
                       y.data_ptr() if y is not None else None,
                       mean.data_ptr() if mean is not None else None,
                       inv.data_ptr() if inv is not None else None,
@@ -54,7 +68,7 @@ def instance_norm_fused(x: torch.Tensor, eps: float = 1e-5,
         return instance_norm_plain(x, eps, relu)
     _check(x)
     y = torch.empty_like(x)
-    _launch(x, y, None, None, eps, relu)
+    _launch(KERNEL, x, y, None, None, eps, relu)
     return y
 
 
@@ -66,5 +80,5 @@ def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5):
     b, c = x.shape[:2]
     mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
     inv = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    _launch(x, None, mean, inv, eps, False)
+    _launch(KERNEL_STATS, x, None, mean, inv, eps, False)
     return mean, inv

@@ -98,9 +98,11 @@ def _encoder(out, prefix, p, s, norm_fn):
 
 
 def from_jax(params_np: dict, model_state_np: dict) -> dict:
-    """cista-eiflow ``(params, model_state)`` of ``composite.init`` (leaves as
-    numpy arrays) -> the reference key layout (``cista_net.*``,
-    ``event_flownet.*``), with the ISTA block under ``lista_blocks.0``."""
+    """cista-eiflow or cista-eraft ``(params, model_state)`` of
+    ``composite.init`` (leaves as numpy arrays) -> the reference key layout
+    (``cista_net.*``, ``event_flownet.*``), with the ISTA block under
+    ``lista_blocks.0``. The flow tree tells the two apart: DCEIFlow has an
+    event encoder, E-RAFT a mask head."""
     out = {}
     c = params_np["cista"]
     pre = "cista_net."
@@ -118,14 +120,18 @@ def from_jax(params_np: dict, model_state_np: dict) -> dict:
 
     f, s = params_np["flow"], model_state_np["flow"]
     pre = "event_flownet."
-    _encoder(out, pre + "fnet", f["fnet"], s.get("fnet", {}), "instance")
-    _encoder(out, pre + "enet", f["enet"], s.get("enet", {}), "instance")
-    _encoder(out, pre + "cnet", f["cnet"], s["cnet"], "batch")
-    for name in ("conv1", "conv2", "convo"):
-        _conv(out, f"{pre}fusion.{name}", f["fusion"][name])
     u = f["update"]
-    for name in ("convc1", "convc2", "conve1", "conve2", "convf1", "convf2", "conv"):
-        _conv(out, f"{pre}update_block.encoder.{name}", u["encoder"][name])
+    _encoder(out, pre + "fnet", f["fnet"], s.get("fnet", {}), "instance")
+    _encoder(out, pre + "cnet", f["cnet"], s["cnet"], "batch")
+    if "enet" in f:                      # DCEIFlow
+        _encoder(out, pre + "enet", f["enet"], s.get("enet", {}), "instance")
+        for name in ("conv1", "conv2", "convo"):
+            _conv(out, f"{pre}fusion.{name}", f["fusion"][name])
+    else:                                # E-RAFT: the mask head is a Sequential
+        _conv(out, f"{pre}update_block.mask.0", u["mask"]["conv1"])
+        _conv(out, f"{pre}update_block.mask.2", u["mask"]["conv2"])
+    for name, p in u["encoder"].items():
+        _conv(out, f"{pre}update_block.encoder.{name}", p)
     for name in ("convz1", "convr1", "convq1", "convz2", "convr2", "convq2"):
         _conv(out, f"{pre}update_block.gru.{name}", u["gru"][name])
     for name in ("conv1", "conv2"):

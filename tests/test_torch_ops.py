@@ -25,13 +25,20 @@ from cista_flow_tpu.ops import conv as JC
 from cista_flow_tpu.ops import corr as JCORR
 from cista_flow_tpu.ops import pad as JPAD
 from cista_flow_tpu.ops import pallas_aug as JAUG
+from cista_flow_tpu.ops import pallas_conv as JPCONV
+from cista_flow_tpu.ops import pallas_ista as JISTA1
 from cista_flow_tpu.ops import pallas_ista2 as JISTA
+from cista_flow_tpu.ops import pool as JPOOL
 from cista_flow_tpu.ops import resize as JRS
+from cista_flow_tpu.ops import upsample as JUP
 from cista_flow_tpu.ops import warp as JW
 from cista_flow_torch.ops import conv as TC
 from cista_flow_torch.ops import corr as TCORR
-from cista_flow_torch.ops import cuda_aug, cuda_corr, cuda_ista2, cuda_norm
+from cista_flow_torch.ops import (cuda_aug, cuda_conv, cuda_corr, cuda_ista, cuda_ista2,
+                                  cuda_norm)
+from cista_flow_torch.ops import pool as TPOOL
 from cista_flow_torch.ops import resize as TRS
+from cista_flow_torch.ops import upsample as TUP
 from cista_flow_torch.ops import warp as TW
 from cista_flow_torch.ops.pad import ImagePadder
 
@@ -246,6 +253,157 @@ def test_fused_ista_dg_k3_plain(depth):
     close(nhwc(trec), rrec, 1e-4)
 
 
+def _ista_inputs(rng, c, h, w, b=2):
+    x1 = rng.standard_normal((b, h, w, c)).astype(np.float32)
+    z = (0.1 * rng.standard_normal((b, h, w, 2 * c))).astype(np.float32)
+
+    def conv(cin, cout):
+        return {"w": (rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(np.float32),
+                "b": (0.05 * rng.standard_normal(cout)).astype(np.float32)}
+    ista = {"D": conv(2 * c, c), "P": conv(c, 2 * c),
+            "Lambda": (0.01 * rng.random((1, 1, 1, 2 * c))).astype(np.float32)}
+    w = (oihw(ista["D"]["w"]), torch.from_numpy(ista["D"]["b"]),
+         oihw(ista["P"]["w"]), torch.from_numpy(ista["P"]["b"]),
+         torch.from_numpy(ista["Lambda"].reshape(-1)))
+    jista = {k: ({kk: jnp.asarray(vv) for kk, vv in v.items()} if isinstance(v, dict)
+                 else jnp.asarray(v)) for k, v in ista.items()}
+    return x1, z, jista, w
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_fused_ista_v2_k3a_plain(depth):
+    """K3a's plain version vs the Pallas v2 kernel in interpret mode, called
+    as tests/test_pallas_ista.py calls it (here in f32: 1e-4 over ``depth``
+    chained convs)."""
+    x1, z, jista, w = _ista_inputs(np.random.default_rng(20), 32, 16, 24)
+    assert JISTA.supported(x1.shape, z.shape)
+    dw, db, pw, pb, lam = JISTA._prep_weights(jista, jnp.float32)
+    ref = JISTA._fused_pallas(jnp.asarray(x1), jnp.asarray(z), dw, db, pw, pb, lam,
+                              depth, True)
+    z_in = nchw(z)
+    out = cuda_ista2.fused_ista_v2(w, nchw(x1), z_in, depth)
+    close(nhwc(out), ref, 1e-4)
+    close(nhwc(out), JISTA._xla_loop(jista, jnp.asarray(x1), jnp.asarray(z), depth), 1e-4)
+    close(nhwc(z_in), z, 0)                      # the input is not modified
+
+
+def test_fused_ista_k6_plain():
+    """K6's plain version vs the Pallas v1 kernel in interpret mode, called
+    as tests/test_pallas_ista.py calls it."""
+    x1, z, jista, w = _ista_inputs(np.random.default_rng(21), 32, 16, 24)
+    ref = JISTA1.fused_ista_pallas(
+        jnp.asarray(x1), jnp.asarray(z), jista["D"]["w"], jista["D"]["b"],
+        jista["P"]["w"], jista["P"]["b"], jista["Lambda"], depth=3, interpret=True)
+    close(nhwc(cuda_ista.fused_ista(w, nchw(x1), nchw(z), 3)), ref, 1e-4)
+
+
+@pytest.mark.parametrize("mode,relu", [("zeros", False), ("reflect", False), ("zeros", True)])
+def test_conv3x3_k5_plain(mode, relu):
+    """K5's plain version vs the Pallas im2col kernel in interpret mode, as
+    tests/test_pallas_conv.py runs it; 1e-4 on sums of 9*64 products."""
+    rng = np.random.default_rng(22)
+    x = rng.standard_normal((1, 24, 32, 64)).astype(np.float32)
+    w = (0.1 * rng.standard_normal((3, 3, 64, 64))).astype(np.float32)
+    b = rng.standard_normal(64).astype(np.float32)
+    assert JPCONV.supported(x.shape, w.shape)
+    ref = JPCONV.conv3x3(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), mode, relu=relu)
+    out = cuda_conv.conv3x3(nchw(x), oihw(w), torch.from_numpy(b), mode, relu)
+    close(nhwc(out), ref, 1e-4)
+    # conv2d sends this shape to the same function
+    close(nhwc(TC.conv2d(nchw(x), oihw(w), torch.from_numpy(b), 1, 1, mode, relu=relu)),
+          nhwc(out), 0)
+    if not relu:
+        close(nhwc(cuda_conv.conv3x3(nchw(x), oihw(w), None, mode)), np.asarray(ref) - b, 1e-4)
+
+
+@pytest.mark.parametrize("w_shape,stride,padding,routed", [
+    ((64, 64, 3, 3), 1, 1, True),        # encoder layer1, CISTA upsamp
+    ((128, 128, 3, 3), 1, 1, True),      # encoder layer3
+    ((96, 96, 3, 3), 1, 1, False),       # layer2: not a routed width
+    ((128, 96, 3, 3), 2, 1, False),      # stride 2, cin != cout
+    ((64, 64, 3, 3), 2, 1, False),       # CISTA W0
+    ((64, 128, 3, 3), 1, 1, False),      # ISTA D / Dg (inside K3)
+    ((128, 64, 3, 3), 1, 1, False),      # ISTA P
+    ((64, 64, 3, 3), 1, 0, False),       # no padding
+    ((64, 64, 1, 1), 1, 0, False),
+    ((128, 128, 1, 5), 1, (0, 2), False),
+    ((256, 128, 3, 3), 1, 1, False),     # flow head
+])
+def test_conv2d_dispatch_rule(w_shape, stride, padding, routed):
+    """Where conv2d routes to K5: the JAX dispatch's shape rule
+    (cista_flow_tpu/ops/conv.py, pallas_conv.CHANNELS), and the result is
+    the plain conv either way."""
+    s2 = (stride, stride)
+    p2 = padding if isinstance(padding, tuple) else (padding, padding)
+    assert TC.routes_to_conv3x3(w_shape, s2, p2) is routed
+    assert cuda_conv.CHANNELS == JPCONV.CHANNELS
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.standard_normal((1, w_shape[1], 9, 11)).astype(np.float32))
+    w = torch.from_numpy((0.05 * rng.standard_normal(w_shape)).astype(np.float32))
+    out = TC.conv2d(x, w, None, stride, padding, relu=True)
+    ref = torch.relu(torch.nn.functional.conv2d(x, w, None, stride, p2))
+    close(out.numpy(), ref.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("shape", [(3, 6, 8, 1), (3, 5, 7, 1), (3, 1, 2, 1), (2, 3, 1, 1)])
+def test_avg_pool2(shape):
+    """Odd trailing rows/cols dropped; a size-1 dim pools to an empty
+    level, as the JAX pool returns it."""
+    rng = np.random.default_rng(24)
+    x = rng.standard_normal(shape).astype(np.float32)
+    ref = np.asarray(JPOOL.avg_pool2(jnp.asarray(x)))
+    out = TPOOL.avg_pool2(torch.from_numpy(x[..., 0]))
+    assert tuple(out.shape) == ref.shape[:3]
+    close(out.numpy(), ref[..., 0], 1e-6)
+
+
+def test_lookup_corr_with_an_empty_level():
+    """A 4x8 map: levels 4x8, 2x4, 1x2 and 0x1. The empty level's 81
+    channels are zeros, as in the JAX lookup; with and without convc1."""
+    rng = np.random.default_rng(25)
+    jp, tp = _pyramids(rng, b=1, h=4, w=8)
+    assert tuple(tp.levels[3].shape) == (32, 0, 1)
+    coords = np.asarray(JCORR.coords_grid(1, 4, 8)) + rng.standard_normal(
+        (1, 4, 8, 2)).astype(np.float32)
+    ref = JCORR.lookup_corr(jp, jnp.asarray(coords), 4)
+    out = cuda_corr.lookup(tp, nchw(coords))
+    close(nhwc(out), ref, 1e-4)
+    assert float(out[:, 243:].abs().max()) == 0.0
+    w = (rng.standard_normal((1, 1, 324, 256)) / 18).astype(np.float32)
+    b = (0.1 * rng.standard_normal(256)).astype(np.float32)
+    ref = jnp.maximum(JC.conv2d(ref, jnp.asarray(w), jnp.asarray(b)), 0.0)
+    close(nhwc(cuda_corr.lookup(tp, nchw(coords), oihw(w), torch.from_numpy(b))), ref, 1e-4)
+
+
+@pytest.mark.parametrize("factor,flow_scale", [(8, None), (4, 8)])
+def test_convex_upsample(factor, flow_scale):
+    """Random mask logits (not zeros), so the channel order tap*r*r + window
+    and the unfold tap order are both held."""
+    rng = np.random.default_rng(26)
+    flow = (2 * rng.standard_normal((2, 5, 6, 2))).astype(np.float32)
+    mask = (2 * rng.standard_normal((2, 5, 6, 9 * factor * factor))).astype(np.float32)
+    ref = JUP.convex_upsample(jnp.asarray(flow), jnp.asarray(mask), factor, flow_scale)
+    out = TUP.convex_upsample(nchw(flow), nchw(mask), factor, flow_scale)
+    assert out.shape == (2, 2, 5 * factor, 6 * factor)
+    close(nhwc(out), ref)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_instance_norm_from_stats_matches_fused(relu):
+    """The K4s route (stats, then the elementwise normalise) against the
+    fused K4 route and against the JAX package's statskernel route."""
+    from cista_flow_tpu.ops import pallas_norm as JPN
+    rng = np.random.default_rng(27)
+    x = (rng.standard_normal((2, 8, 16, 64)) + 0.3).astype(np.float32)
+    out = cuda_norm.instance_norm_from_stats(nchw(x), relu=relu)
+    close(out.numpy(), cuda_norm.instance_norm_fused(nchw(x), relu=relu).numpy(), 1e-6)
+    ref = JPN.instance_norm_statskernel(jnp.asarray(x), 1e-5, relu, True)
+    close(nhwc(out), ref)
+    const = torch.full((1, 4, 6, 6), 0.25)      # a zero voxel's planes: variance 0
+    assert float(cuda_norm.instance_norm_from_stats(const).abs().max()) == 0.0
+    assert float(cuda_norm.instance_norm_fused(const).abs().max()) == 0.0
+
+
 # ------------------------- guards: no fallback, no JAX ----------------------
 
 def test_wrappers_raise_off_cpu_rather_than_fall_back():
@@ -269,6 +427,16 @@ def test_wrappers_raise_off_cpu_rather_than_fall_back():
     with pytest.raises(ValueError):
         cuda_ista2.fused_ista_dg(w, w[0], w[1], torch.empty((1, 16, 8, 8), device="meta"),
                                  torch.empty((1, 32, 8, 8), device="meta"), 1)
+    for loop in (cuda_ista2.fused_ista_v2, cuda_ista.fused_ista):
+        with pytest.raises(ValueError):
+            loop(w, torch.empty((1, 16, 8, 8), device="meta"),
+                 torch.empty((1, 32, 8, 8), device="meta"), 1)
+    with pytest.raises(ValueError):
+        cuda_conv.conv3x3(torch.empty((1, 64, 8, 8), device="meta"),
+                          torch.empty((64, 64, 3, 3), device="meta"))
+    with pytest.raises(ValueError):
+        TC.conv2d(torch.empty((1, 64, 8, 8), device="meta"),
+                  torch.empty((64, 64, 3, 3), device="meta"), padding=1)
 
 
 def test_kernel_build_needs_nvcc():
@@ -280,7 +448,11 @@ def test_kernel_build_needs_nvcc():
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_norm.KERNEL.lib()
     assert all(k.so_path().name.startswith(k.name) for k in
-               (cuda_norm.KERNEL, cuda_aug.KERNEL, cuda_corr.KERNEL, cuda_ista2.KERNEL))
+               (cuda_norm.KERNEL, cuda_aug.KERNEL, cuda_corr.KERNEL, cuda_ista2.KERNEL,
+                cuda_conv.KERNEL, cuda_ista.KERNEL))
+    # the wrappers that share a library count their own launches
+    assert cuda_ista2.KERNEL_V2.kernel is cuda_ista2.KERNEL
+    assert cuda_norm.KERNEL_STATS.kernel is cuda_norm.KERNEL
 
 
 def test_entry_points_default_to_cuda():
@@ -307,7 +479,8 @@ def _imports(path: Path):
 
 def test_port_imports_no_jax_statically():
     files = sorted((REPO / "cista_flow_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) > 21
+    assert {"eraft.py", "upsample.py", "pool.py", "cuda_conv.py", "cuda_ista.py"} <= {f.name for f in files}
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -329,7 +502,7 @@ def test_port_imports_no_jax_at_runtime():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 18
+    assert int(r.stdout.split()[0]) >= 24
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
@@ -380,3 +553,11 @@ def test_kernels_match_plain_versions_on_card():
     ref = cuda_ista2.fused_ista_dg_plain(w, w[0], w[1], x1, z, 2)
     for o, r in zip(out, ref):
         close(o.cpu().numpy(), r.numpy(), 1e-4)
+    wd = tuple(t.to(dev) for t in w)
+    for loop in (cuda_ista2.fused_ista_v2, cuda_ista.fused_ista):
+        close(loop(wd, x1.to(dev), z.to(dev), 2).cpu().numpy(), ref[0].numpy(), 1e-4)
+    xc = torch.randn(2, 64, 13, 21, generator=g)
+    wc, bc = torch.randn(64, 64, 3, 3, generator=g) / 24, torch.randn(64, generator=g)
+    for mode, relu in (("zeros", False), ("reflect", True)):
+        close(cuda_conv.conv3x3(xc.to(dev), wc.to(dev), bc.to(dev), mode, relu).cpu().numpy(),
+              cuda_conv.conv3x3_plain(xc, wc, bc, mode, relu).numpy(), 1e-4)

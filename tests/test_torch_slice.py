@@ -92,4 +92,22 @@ def test_bf16_stays_close_to_f32():
 
 def test_other_modes_are_refused():
     with pytest.raises(ValueError, match="not ported"):
-        Reconstructor(Config(image_dim=(H, W), model_mode="cista-eraft"), device="cpu")
+        Reconstructor(Config(image_dim=(H, W), model_mode="cista-idnet"), device="cpu")
+
+
+def test_frame_under_64_px_matches_jax():
+    """A 32x48 frame pads to 32x64, so the 1/8-res map is 4x8 and the
+    correlation pyramid's last level is empty (0x1): it contributes zeros in
+    both packages. 1e-3 over a 2-step closed loop, as above."""
+    path, iters, depth = POINTS[0]
+    rng = np.random.default_rng(5)
+    voxels = rng.standard_normal((2, 5, 32, 48)).astype(np.float32)
+    jr = JReconstructor(JConfig(image_dim=(32, 48), model_mode="cista-eiflow",
+                                depth=depth, flow_iters=iters, path_to_test_model=path))
+    jrecs, jflows = jr.step_window(list(voxels), return_all=True)
+    tr = Reconstructor(Config(image_dim=(32, 48), depth=depth, flow_iters=iters,
+                              path_to_test_model=path), device="cpu")
+    recs, flows = tr.step_window(voxels, return_all=True)
+    assert np.abs(flows).max() > 0
+    np.testing.assert_allclose(recs, jrecs, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(flows, jflows, rtol=0, atol=1e-3)
