@@ -13,7 +13,10 @@ Phases (any failure raises and the exit code is non-zero):
     error against a stated tolerance, and the median time of the kernel, of
     the plain version and, where one PyTorch call computes the same
     function, of that call (``library_ms``; the port never calls it).
-    ``--kernels-only`` stops here;
+    K3, K3a and K5 also at ragged small shapes on the tensor-core tile and
+    at 32 channels on the direct tile, after an in-place weight update (the
+    repack cache must notice it), and per launch kind (one D and one P conv
+    beside ``F.pad`` + ``F.conv2d``). ``--kernels-only`` stops here;
  4. the flagship path: ``Reconstructor.step_window`` in ``cista-eiflow``
     mode on the committed gate weights at 180x240, at (iters, depth) =
     (1, 1) and (6, 5), 16 steps of seeded voxels in f32 and bf16, with every
@@ -118,9 +121,7 @@ def main(argv) -> int:
     secs = cuda_build.build_all(sources)
     print(f"build: {secs:.1f} s for {len(sources)} sources, {len(counters)} kernels")
     for k in sources:
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {k.name}: {line.strip()}")
+        print(f"  ptxas {k.name}: {ptxas_summary(k.build_log)}")
 
     # ---- 3. kernels against their plain versions --------------------------
     checks = kernel_checks(torch)
@@ -155,6 +156,28 @@ def main(argv) -> int:
 
 
 # ------------------------------------------------------------------------
+def ptxas_summary(log: str) -> str:
+    """``nvcc -Xptxas -v`` in one line: kernels, registers, spills; the
+    tensor-core tile's kernels one by one (their registers set how many
+    blocks an SM holds)."""
+    import re
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    if not regs:
+        return "built earlier (no compiler output)"
+    spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
+    tiles = []
+    for name, used in re.findall(r"Compiling entry function '(\S+)'[^\n]*\n(?:[^\n]*\n){0,3}?"
+                                 r"[^\n]*Used (\d+) registers", log):
+        m = re.search(r"((?:ista_conv|conv3x3)_mma_kernel)I\w*?TileI((?:Li\d+E)+)EEL[ib](\d)E",
+                      name)
+        if m:
+            tile = ",".join(re.findall(r"\d+", m.group(2)))
+            tiles.append(f"{m.group(1)}<Tile<{tile}>,{m.group(3)}> {used}")
+    out = (f"{len(regs)} kernels, {min(regs)}..{max(regs)} registers, "
+           f"{spills} bytes of spills")
+    return out + ("; " + "; ".join(tiles) if tiles else "")
+
+
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     """Median of ``reps`` launches, each timed with CUDA events."""
     for _ in range(warmup):
@@ -328,7 +351,9 @@ def kernel_checks(torch):
             ops = (2 * depth + 1) * 2 * 9 * (2 * c) * c * BATCH * hh * ww
             bms, by = bound(nbytes, ops, dtype)
             print(f"  K3 depth {depth} {dtype}: {ms:.4f} ms (plain {plain:.4f}, "
-                  f"bound {bms:.4f} by {by})")
+                  f"bound {bms:.4f} by {by}; {ms / plain:.2f}x the chain of library "
+                  f"convs, {ops / ms * 1e-9:.1f} TFLOP/s)")
+            ms_k3 = ms
             if depth == 5:
                 results[("K3", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                               bound_ms=bms, bound_by=by, library_ms=None)
@@ -348,9 +373,15 @@ def kernel_checks(torch):
                 ms = time_ms(torch, lambda: fn(wts, x1, z, depth))
                 print(f"  {key} depth {depth} {dtype}: {ms:.4f} ms (plain {plain:.4f}, "
                       f"bound {bms:.4f} by {by})")
+                if key == "K6":
+                    # K6 keeps the direct CUDA-core tile: the yardstick for
+                    # the inner product K3 ran before the tensor-core tile
+                    print(f"  K3 / K6 depth {depth} {dtype}: {ms_k3 / ms:.3f}")
                 if depth == 5:
                     results[(key, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                                  bound_ms=bms, bound_by=by, library_ms=None)
+
+        k3_extra_checks(torch, randn, g, dtype, x1, z, wts, gw, gb)
 
         # K4: the encoders' three instance-norm shapes (+ the stats phase)
         for shape in ((BATCH, 64, 96, 128), (BATCH, 96, 48, 64), (BATCH, 128, 24, 32)):
@@ -406,11 +437,23 @@ def kernel_checks(torch):
             lib = time_ms(torch, lambda: cuda_conv.conv3x3_plain(x, wk, bk, mode))
             nbytes = (2 * x.numel() + wk.numel() + bk.numel()) * es
             bms, by = bound(nbytes, 2 * 9 * c * c * shape[0] * shape[2] * shape[3], dtype)
+            ops = 2 * 9 * c * c * shape[0] * shape[2] * shape[3]
             print(f"  K5 {shape} {mode} {dtype}: {ms:.4f} ms (F.conv2d {lib:.4f}, "
-                  f"bound {bms:.4f} by {by})")
+                  f"bound {bms:.4f} by {by}; {ms / lib:.2f}x the library, "
+                  f"{ops / ms * 1e-9:.1f} TFLOP/s)")
             if shape == (BATCH, 64, 96, 128):
                 results[("K5", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=lib,
                                               bound_ms=bms, bound_by=by, library_ms=lib)
+        # the weights change in place: the wrapper's cached repack (bf16 at
+        # C % 64 == 0) or cast must follow
+        x = randn(2, 64, 21, 45).to(dt)
+        wk = randn(64, 64, 3, 3, scale=1 / 24).to(dt)
+        cuda_conv.conv3x3(x, wk, None, "reflect")
+        wk.mul_(-2.0)
+        ref = cuda_conv.conv3x3_plain(x.float(), wk.float(), None, "reflect")
+        compare(torch, "K5 after an in-place weight update", dtype,
+                cuda_conv.conv3x3(x, wk, None, "reflect"), ref,
+                f32_tol(ref) if dtype == "float32" else bf16_tol(ref, 2))
         for key in KERNELS:
             r = results[(key, dtype)]
             print(f"  {key} {dtype}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -418,6 +461,89 @@ def kernel_checks(torch):
                   f"{r['library_ms']}")
     # the serving dtype's numbers go into the kernels line
     return {key: results[(key, "bfloat16")] for key in KERNELS}
+
+
+def k3_extra_checks(torch, randn, g, dtype, x1, z, wts, gw, gb):
+    """K3 and K3a beyond the serving shape: ragged small shapes (C = 64: the
+    tensor-core tile in bf16; C = 32: the direct tile), an in-place weight
+    update, and at the serving shape one D and one P launch beside the
+    PyTorch calls for the same conv (``F.pad`` + ``F.conv2d``)."""
+    import torch.nn.functional as F
+    from cista_flow_torch.ops import conv_tile, cuda_ista2
+
+    dt = getattr(torch, dtype)
+
+    def weights(c):
+        return ((randn(c, 2 * c, 3, 3, scale=(18 * c) ** -0.5).to(dt),
+                 randn(c, scale=0.05).to(dt),
+                 randn(2 * c, c, 3, 3, scale=(9 * c) ** -0.5).to(dt),
+                 randn(2 * c, scale=0.05).to(dt),
+                 (torch.rand(2 * c, generator=g, device=x1.device) * 0.01).to(dt)),
+                randn(c, 2 * c, 3, 3, scale=(18 * c) ** -0.5).to(dt),
+                randn(c, scale=0.05).to(dt))
+
+    def tol(ref):
+        return f32_tol(ref) if dtype == "float32" else bf16_tol(ref, 8)
+
+    def f32(ws):
+        return tuple(t.float() for t in ws)
+
+    for bsz, c, hh, ww in ((2, 64, 21, 45), (1, 64, 2, 2), (2, 32, 21, 45)):
+        xs = randn(bsz, c, hh, ww).to(dt)
+        zs = randn(bsz, 2 * c, hh, ww, scale=0.1).to(dt)
+        ws, gws, gbs = weights(c)
+        for depth in (1, 3):
+            ref = cuda_ista2.fused_ista_dg_plain(f32(ws), gws.float(), gbs.float(),
+                                                 xs.float(), zs.float(), depth)
+            compare(torch, f"K3 ista+Dg ({bsz},{c},{hh},{ww}) depth {depth}", dtype,
+                    cuda_ista2.fused_ista_dg(ws, gws, gbs, xs, zs, depth), ref, tol(ref))
+            compare(torch, f"K3a ista loop ({bsz},{c},{hh},{ww}) depth {depth}", dtype,
+                    cuda_ista2.fused_ista_v2(ws, xs, zs, depth), ref[0], tol(ref[0]))
+        if c == 64 and hh > 2:
+            ws[0].mul_(0.5)
+            ws[2].add_(0.01)
+            gws.mul_(-1.0)
+            ref = cuda_ista2.fused_ista_dg_plain(f32(ws), gws.float(), gbs.float(),
+                                                 xs.float(), zs.float(), 2)
+            compare(torch, "K3 after in-place weight updates", dtype,
+                    cuda_ista2.fused_ista_dg(ws, gws, gbs, xs, zs, 2), ref, tol(ref))
+
+    # one launch of each kind at the serving shape, beside the library's conv
+    dw, db, pw, pb, lam = wts
+    c = x1.shape[1]
+    ops = 2 * 9 * 2 * c * c * x1.shape[0] * x1.shape[2] * x1.shape[3]
+
+    def lib_conv(src, w, b):
+        return F.conv2d(F.pad(src, (1, 1, 1, 1), mode="reflect"), w, b)
+
+    lib_d = time_ms(torch, lambda: lib_conv(z, dw, db))
+    lib_p = time_ms(torch, lambda: lib_conv(x1, pw, pb))
+    if cuda_ista2.uses_mma_tile(dt, c):
+        x1g, zg = conv_tile.to_grouped(x1), conv_tile.to_grouped(z)
+        # the layout kernels at the call's two ends move values, so: equal
+        if not (torch.equal(cuda_ista2._to_grouped(cuda_ista2.KERNEL, z), zg)
+                and torch.equal(cuda_ista2._from_grouped(cuda_ista2.KERNEL, zg), z)):
+            raise AssertionError("K3 layout kernels differ from conv_tile.to_grouped")
+        xd, zo = torch.empty_like(x1g), torch.empty_like(zg)
+        dwp, pwp = conv_tile.packed_weights(dw, dt), conv_tile.packed_weights(pw, dt)
+        ms_d = time_ms(torch, lambda: cuda_ista2._conv_mma(
+            cuda_ista2.KERNEL, cuda_ista2.MODE_D, zg, dwp, db, x1g, lam, xd))
+        ms_p = time_ms(torch, lambda: cuda_ista2._conv_mma(
+            cuda_ista2.KERNEL, cuda_ista2.MODE_P, x1g, pwp, pb, zg, lam, zo))
+        ms_in = time_ms(torch, lambda: (cuda_ista2._to_grouped(cuda_ista2.KERNEL, x1),
+                                        cuda_ista2._to_grouped(cuda_ista2.KERNEL, z)))
+        ms_out = time_ms(torch, lambda: cuda_ista2._from_grouped(cuda_ista2.KERNEL, zg))
+        print(f"  K3 layout passes {dtype}: NCHW -> grouped (x1 and z) {ms_in:.4f} ms, "
+              f"grouped -> NCHW (z) {ms_out:.4f} ms")
+    else:
+        xd, zo = torch.empty_like(x1), torch.empty_like(z)
+        ms_d = time_ms(torch, lambda: cuda_ista2._conv(
+            cuda_ista2.KERNEL, cuda_ista2.MODE_D, z, dw, db, x1, lam, xd))
+        ms_p = time_ms(torch, lambda: cuda_ista2._conv(
+            cuda_ista2.KERNEL, cuda_ista2.MODE_P, x1, pw, pb, z, lam, zo))
+    for kind, ms, lib in (("D 128->64", ms_d, lib_d), ("P 64->128", ms_p, lib_p)):
+        print(f"  K3 one launch {kind} {dtype}: {ms:.4f} ms, {ops / ms * 1e-9:.1f} TFLOP/s "
+              f"(F.pad + F.conv2d {lib:.4f} ms: {ms / lib:.2f}x the library)")
 
 
 def voxels(seed: int, steps: int, batch: int = 1) -> np.ndarray:

@@ -1,6 +1,8 @@
 // A direct stride-1 3x3 convolution tile, shared by the kernels that are
-// 3x3 convs with different epilogues: K3/K3a (ista.cu), K5 (conv3x3.cu) and
-// K6 (ista_loop.cu).
+// 3x3 convs with different epilogues: K6 (ista_loop.cu) in both dtypes, and
+// K3/K3a (ista.cu) and K5 (conv3x3.cu) in f32 and at widths that are no
+// multiple of 64 (in bf16 at the models' widths those run the tensor-core
+// tile of conv3x3_mma.cuh).
 //
 // A block of NT = 128 threads computes a TH x TW = 16x32 pixel tile of one
 // sample for CO = 16 output channels. Input channels stream through shared
@@ -9,9 +11,8 @@
 // copy of the input exists anywhere. Each thread keeps PX = 4 pixels
 // (strided along x) x 16 channels of f32 accumulators and reads the staged
 // weights as float4 broadcasts. The FMAs run on the CUDA cores in f32, also
-// for bf16 data (converted while staging); a tensor-core inner product is
-// later work. The caller owns the epilogue: `store_tile` hands it each
-// accumulator with its channel and pixel.
+// for bf16 data (converted while staging). The caller owns the epilogue:
+// `store_tile` hands it each accumulator with its channel and pixel.
 #pragma once
 
 #include "common.cuh"

@@ -3,17 +3,28 @@
 Counterpart of cista_flow_tpu/ops/pallas_conv.py ``conv3x3``. CUDA tensors
 go to the kernel (or raise); CPU tensors take the plain version below.
 ``ops/conv.conv2d`` routes the square 64- and 128-channel convs here.
+
+In bf16 at C % 64 == 0 the kernel is the tensor-core tile and takes the
+weights repacked (``conv_tile.packed_weights``: once per weight tensor,
+cast included); otherwise the direct tile takes them OIHW in x's dtype.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .conv_tile import cast_cached, packed_weights
 from .cuda_build import DTYPE_CODES, I, Kernel, P, check_cuda, on_cpu, stream_ptr
 
-KERNEL = Kernel("conv3x3.cu", {"cista_conv3x3": [I, I, I, P, P, P, P, P, I, I, I, I, P]})
+KERNEL = Kernel("conv3x3.cu", {"cista_conv3x3": [I, I, I, I, P, P, P, P, I, I, I, I, P]})
 # the square widths ops/conv.conv2d routes here (pallas_conv.CHANNELS)
 CHANNELS = (64, 128)
+
+
+def uses_mma_tile(dtype: torch.dtype, c: int) -> bool:
+    """Which inner product a conv of width ``c`` in ``dtype`` gets on the
+    card: the tensor-core tile (bf16, C % 64 == 0) or the direct tile."""
+    return dtype == torch.bfloat16 and c % 64 == 0
 
 
 def conv3x3_plain(x, w, b=None, padding_mode: str = "zeros", relu: bool = False):
@@ -43,16 +54,14 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
         raise ValueError("conv3x3 kernel needs C % 16 == 0 and H, W >= 2")
     if x.dtype not in DTYPE_CODES:
         raise ValueError(f"conv3x3 kernel: dtype {x.dtype}")
-    w = w.to(x.dtype)
-    b = b.to(x.dtype) if b is not None else None
+    packed = uses_mma_tile(x.dtype, c)
+    w = packed_weights(w, x.dtype) if packed else cast_cached(w, x.dtype)
+    b = cast_cached(b, x.dtype) if b is not None else None
     check_cuda("conv3x3", (x.dtype,), x, w, *(() if b is None else (b,)))
     out = torch.empty_like(x)
-    # the bf16 tensor-core path repacks the weights into scratch of w's size
-    scratch = torch.empty_like(w) if x.dtype == torch.bfloat16 else None
     with torch.cuda.device(x.device):
         KERNEL.launch("cista_conv3x3", DTYPE_CODES[x.dtype],
-                      int(padding_mode == "reflect"), int(relu), x.data_ptr(),
+                      int(padding_mode == "reflect"), int(relu), int(packed), x.data_ptr(),
                       w.data_ptr(), b.data_ptr() if b is not None else None,
-                      scratch.data_ptr() if scratch is not None else None,
                       out.data_ptr(), bsz, c, h, wd, stream_ptr(x.device))
     return out

@@ -6,17 +6,28 @@ rec = relu(Dg(z)); ``fused_ista_v2`` (K3a) is the loop alone. All convs are
 3x3 reflect-padded. On the card one call is 2*depth (+ 1) launches of one
 conv kernel with the epilogues fused; each wrapper's launch count counts
 its calls. CPU tensors take the plain versions.
+
+In bf16 at C % 64 == 0 the launches are the tensor-core tile: x1, x1 - D(z)
+and the running z are private to the call, so they are kept channel-grouped
+(``conv_tile.to_grouped``) between the launches and converted at the call's
+two ends (two small layout kernels in the same source), and the weights go in repacked (``conv_tile.packed_weights``, once
+per weight tensor). Otherwise the direct tile works on NCHW and OIHW.
 """
 from __future__ import annotations
 
 import torch
 
 from .conv import conv2d
+from .conv_tile import packed_weights
 from .cuda_build import (DTYPE_CODES, I, Kernel, P, SharedKernel, check_cuda, on_cpu,
                          stream_ptr)
+from .cuda_conv import uses_mma_tile
 
 KERNEL = Kernel("ista.cu", {"cista_ista_conv": [I, I, P, P, P, P, P, P,
-                                                I, I, I, I, I, P]})
+                                                I, I, I, I, I, P],
+                            "cista_ista_conv_mma": [I, P, P, P, P, P, P,
+                                                    I, I, I, I, I, P],
+                            "cista_regroup": [I, P, P, I, I, I, I, P]})
 KERNEL_V2 = SharedKernel(KERNEL)        # K3a: the same source, its own count
 MODE_D, MODE_P, MODE_G = 0, 1, 2
 
@@ -83,6 +94,45 @@ def _loop(kernel, w, x1, z, depth):
     return zn
 
 
+def _conv_mma(kernel, mode, src, packed, bias, aux, lam, out):
+    """One launch of the tensor-core tile; ``src`` and ``aux`` grouped."""
+    b, groups, h, wd, _ = src.shape
+    kernel.call("cista_ista_conv_mma", mode, src.data_ptr(), packed.data_ptr(),
+                bias.data_ptr(), aux.data_ptr() if aux is not None else None,
+                lam.data_ptr(), out.data_ptr(), b, groups * 8, packed.shape[2], h, wd,
+                stream_ptr(src.device))
+
+
+def _to_grouped(kernel, x):
+    """``conv_tile.to_grouped`` of a bf16 NCHW tensor on the card."""
+    b, c, h, wd = x.shape
+    out = torch.empty((b, c // 8, h, wd, 8), dtype=x.dtype, device=x.device)
+    kernel.call("cista_regroup", 1, x.data_ptr(), out.data_ptr(), b, c, h, wd,
+                stream_ptr(x.device))
+    return out
+
+
+def _from_grouped(kernel, g):
+    """``conv_tile.from_grouped`` of a bf16 grouped tensor on the card."""
+    b, groups, h, wd, _ = g.shape
+    out = torch.empty((b, groups * 8, h, wd), dtype=g.dtype, device=g.device)
+    kernel.call("cista_regroup", 0, g.data_ptr(), out.data_ptr(), b, groups * 8, h, wd,
+                stream_ptr(g.device))
+    return out
+
+
+def _loop_mma(kernel, w, x1, z, depth):
+    """2*depth launches on grouped arrays; returns z grouped (a new array)."""
+    dw, db, pw, pb, lam = w
+    dwp, pwp = packed_weights(dw, x1.dtype), packed_weights(pw, x1.dtype)
+    x1g, zg = _to_grouped(kernel, x1), _to_grouped(kernel, z)
+    xd = torch.empty_like(x1g)         # x1 - D(z)
+    for _ in range(depth):
+        _conv_mma(kernel, MODE_D, zg, dwp, db, x1g, lam, xd)
+        _conv_mma(kernel, MODE_P, xd, pwp, pb, zg, lam, zg)     # z in place
+    return zg
+
+
 def fused_ista_v2(w, x1: torch.Tensor, z: torch.Tensor, depth: int) -> torch.Tensor:
     """K3a. w = (dw (C, 2C, 3, 3), db (C,), pw (2C, C, 3, 3), pb (2C,),
     lam (2C,)); x1 (B, C, H, W); z (B, 2C, H, W). Returns z after ``depth``
@@ -91,7 +141,10 @@ def fused_ista_v2(w, x1: torch.Tensor, z: torch.Tensor, depth: int) -> torch.Ten
         return ista_loop_plain(w, x1, z, depth)
     check_ista_args("fused_ista_v2", w, x1, z, depth)
     with torch.cuda.device(x1.device):
-        zn = _loop(KERNEL_V2, w, x1, z, depth)
+        if uses_mma_tile(x1.dtype, x1.shape[1]):
+            zn = _from_grouped(KERNEL_V2, _loop_mma(KERNEL_V2, w, x1, z, depth))
+        else:
+            zn = _loop(KERNEL_V2, w, x1, z, depth)
     KERNEL_V2.launches += 1
     return zn
 
@@ -107,7 +160,12 @@ def fused_ista_dg(w, gw, gb, x1: torch.Tensor, z: torch.Tensor, depth: int):
     check_cuda("fused_ista_dg", (x1.dtype,), gw, gb, x1)
     rec = torch.empty_like(x1)
     with torch.cuda.device(x1.device):
-        zn = _loop(KERNEL, w, x1, z, depth)
-        _conv(KERNEL, MODE_G, zn, gw, gb, None, w[4], rec)
+        if uses_mma_tile(x1.dtype, x1.shape[1]):
+            zg = _loop_mma(KERNEL, w, x1, z, depth)
+            _conv_mma(KERNEL, MODE_G, zg, packed_weights(gw, x1.dtype), gb, None, w[4], rec)
+            zn = _from_grouped(KERNEL, zg)
+        else:
+            zn = _loop(KERNEL, w, x1, z, depth)
+            _conv(KERNEL, MODE_G, zn, gw, gb, None, w[4], rec)
     KERNEL.launches += 1
     return zn, rec
