@@ -10,13 +10,20 @@ Phases (any failure raises and the exit code is non-zero):
  3. each of the eight kernels (K1, K2, K3, K3a, K4, K4s, K5, K6) against its
     plain PyTorch version on the card, at the shapes the serving paths give
     it (180x240 frames, batch 8), in bf16 and f32 with TF32 off: max abs
-    error against a stated tolerance, and the median time of the kernel, of
-    the plain version and, where one PyTorch call computes the same
-    function, of that call (``library_ms``; the port never calls it).
+    error against a stated tolerance, and the device time per call of the
+    kernel, of the plain version and, where one PyTorch call computes the
+    same function, of that call (``library_ms``; the port never calls it),
+    from the kernel time of a profiler trace, so that the host's time to
+    issue a call is not counted (``profile_kernels.device_ms``).
     K3, K3a and K5 also at ragged small shapes on the tensor-core tile and
     at 32 channels on the direct tile, after an in-place weight update (the
     repack cache must notice it), and per launch kind (one D and one P conv
-    beside ``F.pad`` + ``F.conv2d``). ``--kernels-only`` stops here;
+    beside ``F.pad`` + ``F.conv2d``). K2 also at ragged shapes and past
+    65535 samples, with flows several periods of the fold out and the
+    zero-flow gate true and false;
+    K4 and K4s also at plane sizes that take each launch route (1 to 40000
+    elements, a misaligned view, constant planes) and at the cista-eraft
+    window's 136 samples. ``--kernels-only`` stops here;
  4. the flagship path: ``Reconstructor.step_window`` in ``cista-eiflow``
     mode on the committed gate weights at 180x240, at (iters, depth) =
     (1, 1) and (6, 5), 16 steps of seeded voxels in f32 and bf16, with every
@@ -30,8 +37,9 @@ Phases (any failure raises and the exit code is non-zero):
  4c. variant windows (4 steps, f32, depth 5): the ISTA loop through K3a and
     through K6, the encoders' norms through K4s, each held against the
     default route.
-The last lines are the ``kernels`` JSON, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+The last lines are the ``kernels`` JSON (K2, K4 and K4s with a row for
+each timed shape under ``shapes``), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -147,7 +155,8 @@ def main(argv) -> int:
                      "replaces": replaces, "launches": launches[key],
                      "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                     "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+                     "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                     **({"shapes": c["shapes"]} if "shapes" in c else {})})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -178,21 +187,12 @@ def ptxas_summary(log: str) -> str:
     return out + ("; " + "; ".join(tiles) if tiles else "")
 
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` launches, each timed with CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b))
-    return float(statistics.median(ts))
+def time_ms(torch, fn) -> float:
+    """Device ms per call of ``fn`` (``profile_kernels.device_ms``): the
+    kernel time of 20 back-to-back calls in a profiler trace, over 20; the
+    host's time to issue a call is not counted."""
+    from cista_flow_torch.profile_kernels import device_ms
+    return device_ms(fn)
 
 
 def bound(nbytes: float, ops: float, dtype: str):
@@ -230,6 +230,87 @@ def bf16_tol(ref, ulps: float) -> float:
     return ulps * 2.0 ** -8 * max(top, 1.0)
 
 
+def warp_tol(img, ref, reach: float, dtype: str) -> float:
+    """K2's tolerance. f32: the plain version on the card divides by W as a
+    multiply by 1/W (PyTorch's scalar division), so sample coordinates may
+    differ by ~2 ulps of the largest coordinate (``reach`` pixels); on a
+    noise image that moves a sample by up to the largest step between
+    neighbours. bf16: 2 rounding steps."""
+    if dtype != "float32":
+        return bf16_tol(ref, 2)
+    step = max(float((img[..., 1:] - img[..., :-1]).abs().max()),
+               float((img[..., 1:, :] - img[..., :-1, :]).abs().max()))
+    return max(1e-5, 4 * 2.0 ** -23 * reach * step)
+
+
+def k2_extra_checks(torch, randn, dtype):
+    """K2 beyond the serving shapes: ragged shapes (W not a multiple of the
+    32-pixel tile, C not of the 8-channel chunk), batches of more than
+    65535 samples (two launches), both signs, flows that
+    reach 1.4, 3, 5.2 and 8000 half periods of the fold out (its direct,
+    subtraction and fmodf branches), and the zero-flow gate both true (bit
+    for bit the ungated warp) and false (bit for bit the input). The plain
+    version runs on the CPU here, where it divides by W as the kernel does
+    (no reciprocal), so the far coordinates add nothing to the tolerance."""
+    from cista_flow_torch.ops import cuda_aug
+
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    for (b, c, hh, ww), sign in (((2, 128, 9, 13), 1.0), ((3, 1, 17, 23), -1.0),
+                                 ((2, 21, 45, 61), -1.0), ((BATCH, 128, H // 2, W // 2), 1.0),
+                                 ((70000, 3, 2, 5), 1.0), ((70000, 1, 2, 5), -1.0)):
+        img = randn(b, c, hh, ww).to(dt)
+        flow = randn(b, 2, hh, ww, scale=3.0)
+        periods = torch.tensor([0.7, 1.5, -2.6, 4e3], device=dev)
+        flow[0, 0, 0, :4] = periods * 2 * ww
+        flow[-1, 1, -1, -4:] = -periods * 2 * hh
+        ungated = cuda_aug.warp_reflect(img, flow, sign)
+        for gate in (None, True, False):
+            g = None if gate is None else torch.tensor(gate, device=dev)
+            out = ungated if gate is None else cuda_aug.warp_reflect(img, flow, sign, g)
+            ref = cuda_aug.warp_reflect_plain(img.float().cpu(), flow.cpu(), sign,
+                                              None if g is None else g.cpu())
+            compare(torch, f"K2 warp {(b, c, hh, ww)} sign {sign:+.0f} far, gate={gate}",
+                    dtype, out.cpu(), ref,
+                    0.0 if gate is False else warp_tol(img, ref, max(hh, ww), dtype))
+            if gate is not None and not torch.equal(out, ungated if gate else img):
+                raise AssertionError(f"K2 gate={gate} at {(b, c, hh, ww)}: not the "
+                                     f"{'ungated warp' if gate else 'input'} bit for bit")
+
+
+def k4_extra_checks(torch, randn, dtype):
+    """K4 and K4s at plane sizes off the serving path: each template of
+    ``launch_rule`` with a masked tail, the generic route (ragged, large),
+    plane counts that leave warps of a block idle, a misaligned input, and
+    constant planes on the warp route."""
+    from cista_flow_torch.ops import cuda_norm
+
+    dt = getattr(torch, dtype)
+    es = torch.tensor([], dtype=dt).element_size()
+    for hw in (1, 7, 8, 100, 769, 1000, 2000, 3071, 5000, 12000, 12289, 20000, 40000):
+        x = (randn(2, 3, 1, hw) * 2.0 + 0.5).to(dt)
+        route = cuda_norm.launch_rule(hw, es)
+        for relu in (False, True):
+            ref = cuda_norm.instance_norm_plain(x.float(), relu=relu)
+            compare(torch, f"K4 norm hw={hw} {route} relu={relu}", dtype,
+                    cuda_norm.instance_norm_fused(x, relu=relu), ref,
+                    2e-5 if dtype == "float32" else bf16_tol(ref, 2))
+        compare(torch, f"K4s stats hw={hw} {route}", dtype, cuda_norm.instance_norm_stats(x),
+                cuda_norm.instance_norm_stats_plain(x.float()),
+                1e-4 if dtype == "float32" else 1e-3)
+    # a contiguous view that starts one element in: not 16-byte aligned
+    base = (randn(2 * 5 * 768 + 1) * 2.0).to(dt)
+    x = base[1:].view(2, 5, 24, 32)
+    ref = cuda_norm.instance_norm_plain(x.float())
+    compare(torch, "K4 norm of a misaligned view", dtype, cuda_norm.instance_norm_fused(x),
+            ref, 2e-5 if dtype == "float32" else bf16_tol(ref, 2))
+    for shape in ((3, 5, 24, 32), (3, 5, 48, 64)):
+        const = torch.full(shape, 0.3, dtype=dt, device=x.device)
+        compare(torch, f"K4 norm of constant planes {shape}", dtype,
+                cuda_norm.instance_norm_fused(const),
+                cuda_norm.instance_norm_plain(const.float()), 1e-4)
+
+
 def window_entries(coords, sizes, radius: int = 4) -> int:
     """Pyramid entries K1 must read for these coords: per sample and level,
     the in-range part of the (2r+2)^2 block of bilinear corners around
@@ -252,7 +333,8 @@ def kernel_checks(torch):
     from cista_flow_torch.ops import (cuda_aug, cuda_conv, cuda_corr, cuda_ista, cuda_ista2,
                                       cuda_norm)
     from cista_flow_torch.ops.corr import CorrPyramid, coords_grid
-    from cista_flow_torch.ops.warp import frame_warp_coords
+    from cista_flow_torch.profile_kernels import (NORM_SHAPES, WARP_SHAPES,
+                                                  batch_norm_stats_call, grid_sample_call)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -295,35 +377,41 @@ def kernel_checks(torch):
         results[("K1", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                       bound_ms=bms, bound_by=by, library_ms=None)
 
-        # K2: sparse-code warp (C=128, half res) and frame warp (C=1, full res)
-        for tag, c, hh, ww in (("C=128 90x120", 128, H // 2, W // 2),
-                               ("C=1 180x240", 1, H, W)):
-            img = randn(BATCH, c, hh, ww).to(dt)
-            flow = randn(BATCH, 2, hh, ww, scale=3.0)
+        # K2: sparse-code warp (C=128, half res) and frame warp (C=1, full res),
+        # timed as the serving path calls it: with the zero-flow gate on the card
+        k2 = []
+        gate = torch.tensor(True, device=dev)
+        for shape in WARP_SHAPES:
+            bsz, c, hh, ww = shape
+            img = randn(*shape).to(dt)
+            flow = randn(bsz, 2, hh, ww, scale=3.0)
             ref = cuda_aug.warp_reflect_plain(img.float(), flow, -1.0)
-            out = cuda_aug.warp_reflect(img, flow, -1.0)
-            # f32: the plain version on the card divides by W as a multiply
-            # by 1/W (PyTorch's scalar division), so sample coordinates may
-            # differ by ~2 ulps of the frame width; on a noise image that
-            # moves a sample by up to the largest step between neighbours
-            step = max(float((img[..., 1:] - img[..., :-1]).abs().max()),
-                       float((img[..., 1:, :] - img[..., :-1, :]).abs().max()))
-            tol32 = max(1e-5, 4 * 2.0 ** -23 * max(hh, ww) * step)
-            err = compare(torch, f"K2 warp {tag}", dtype, out, ref,
-                          tol32 if dtype == "float32" else bf16_tol(ref, 2))
-            gx, gy = frame_warp_coords(flow, -1.0)
-            grid = torch.stack([gx / (ww - 1) * 2 - 1, gy / (hh - 1) * 2 - 1], -1).to(dt)
-            lib = time_ms(torch, lambda: F.grid_sample(
-                img, grid, mode="bilinear", padding_mode="reflection", align_corners=True))
-            ms = time_ms(torch, lambda: cuda_aug.warp_reflect(img, flow, -1.0))
-            plain = time_ms(torch, lambda: cuda_aug.warp_reflect_plain(img, flow, -1.0))
+            out = cuda_aug.warp_reflect(img, flow, -1.0, gate)
+            err = compare(torch, f"K2 warp {shape}", dtype, out, ref,
+                          warp_tol(img, ref, max(hh, ww), dtype))
+            lib = time_ms(torch, grid_sample_call(img, flow, -1.0))
+            ms = time_ms(torch, lambda: cuda_aug.warp_reflect(img, flow, -1.0, gate))
+            ms_ungated = time_ms(torch, lambda: cuda_aug.warp_reflect(img, flow, -1.0))
+            plain = time_ms(torch, lambda: cuda_aug.warp_reflect_plain(img, flow, -1.0, gate))
             nbytes = 2 * img.numel() * es + flow.numel() * 4
-            bms, by = bound(nbytes, BATCH * hh * ww * (40 + 8 * c), "float32")
-            print(f"  K2 warp {tag} {dtype}: {ms:.4f} ms (plain {plain:.4f}, "
-                  f"grid_sample {lib:.4f}, bound {bms:.4f})")
+            bms, by = bound(nbytes, bsz * hh * ww * (40 + 8 * c), "float32")
+            print(f"  K2 warp {shape} {dtype}: {ms:.4f} ms (ungated {ms_ungated:.4f}, plain "
+                  f"{plain:.4f}, grid_sample {lib:.4f}, bound {bms:.4f}; "
+                  f"{nbytes / ms * 1e-9:.2f} TB/s, {ms / lib:.2f}x the library)")
+            k2.append(dict(shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=bms, bound_by=by, library_ms=lib))
             if c == 128:
-                results[("K2", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                              bound_ms=bms, bound_by=by, library_ms=lib)
+                # the same warp at one flow for every pixel: a warp's 32 samples
+                # then share two rows, where the noise flow above scatters them
+                flow1 = torch.zeros_like(flow)
+                flow1[:, 0], flow1[:, 1] = 2.3, -1.6
+                ms1 = time_ms(torch, lambda: cuda_aug.warp_reflect(img, flow1, -1.0, gate))
+                lib1 = time_ms(torch, grid_sample_call(img, flow1, -1.0))
+                print(f"  K2 warp {shape} {dtype} at a uniform flow: {ms1:.4f} ms "
+                      f"(grid_sample {lib1:.4f}; {nbytes / ms1 * 1e-9:.2f} TB/s)")
+        results[("K2", dtype)] = {**{k: v for k, v in k2[0].items() if k != "shape"},
+                                  "shapes": k2}
+        k2_extra_checks(torch, randn, dtype)
 
         # K3: ISTA loop + Dg at 90x120, C=64
         c, hh, ww = 64, H // 2, W // 2
@@ -383,33 +471,51 @@ def kernel_checks(torch):
 
         k3_extra_checks(torch, randn, g, dtype, x1, z, wts, gw, gb)
 
-        # K4: the encoders' three instance-norm shapes (+ the stats phase)
-        for shape in ((BATCH, 64, 96, 128), (BATCH, 96, 48, 64), (BATCH, 128, 24, 32)):
+        # K4: the encoders' three instance-norm shapes (+ the stats phase), and
+        # fnet's largest at the cista-eraft window's (T+1)*8 = 136 samples
+        k4 = []
+        for shape in NORM_SHAPES:
             x = (randn(*shape) * 2.0 + 0.5).to(dt)
             for relu in (False, True):
                 ref = cuda_norm.instance_norm_plain(x.float(), relu=relu)
                 out = cuda_norm.instance_norm_fused(x, relu=relu)
-                err = compare(torch, f"K4 norm {shape[1:]} relu={relu}", dtype, out, ref,
+                err = compare(torch, f"K4 norm {shape} relu={relu}", dtype, out, ref,
                               2e-5 if dtype == "float32" else bf16_tol(ref, 2))
             ref = cuda_norm.instance_norm_stats_plain(x.float())
             out = cuda_norm.instance_norm_stats(x)
-            err_s = compare(torch, f"K4s stats {shape[1:]}", dtype, out, ref,
+            err_s = compare(torch, f"K4s stats {shape}", dtype, out, ref,
                             1e-4 if dtype == "float32" else 1e-3)
+            # the library call for K4s computes the same statistics
+            compare(torch, f"torch.batch_norm_stats {shape}", dtype,
+                    batch_norm_stats_call(x)(), tuple(r.flatten() for r in ref),
+                    1e-4 if dtype == "float32" else 1e-3)
             ms = time_ms(torch, lambda: cuda_norm.instance_norm_fused(x))
             plain = time_ms(torch, lambda: cuda_norm.instance_norm_plain(x))
             lib = time_ms(torch, lambda: F.instance_norm(x))
             ms_s = time_ms(torch, lambda: cuda_norm.instance_norm_stats(x))
-            bms, by = bound(2 * x.numel() * es, 6 * x.numel(), "float32")
-            print(f"  K4 {shape} {dtype}: {ms:.4f} ms (stats only {ms_s:.4f}, plain "
-                  f"{plain:.4f}, F.instance_norm {lib:.4f}, bound {bms:.4f})")
-            if shape[1] == 64:
-                results[("K4", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                              bound_ms=bms, bound_by=by, library_ms=lib)
-                plain_s = time_ms(torch, lambda: cuda_norm.instance_norm_stats_plain(x))
-                bms, by = bound(x.numel() * es + 8 * x.shape[0] * x.shape[1],
+            plain_s = time_ms(torch, lambda: cuda_norm.instance_norm_stats_plain(x))
+            lib_s = time_ms(torch, batch_norm_stats_call(x))
+            nbytes = 2 * x.numel() * es
+            bms, by = bound(nbytes, 6 * x.numel(), "float32")
+            bms_s, by_s = bound(x.numel() * es + 8 * x.shape[0] * x.shape[1],
                                 4 * x.numel(), "float32")
-                results[("K4s", dtype)] = dict(max_abs_err=err_s, ms=ms_s, plain_ms=plain_s,
-                                               bound_ms=bms, bound_by=by, library_ms=None)
+            print(f"  K4 {shape} {dtype}: {ms:.4f} ms (plain {plain:.4f}, F.instance_norm "
+                  f"{lib:.4f}, bound {bms:.4f}; {nbytes / ms * 1e-9:.2f} TB/s, {ms / lib:.2f}x "
+                  f"the library; rule {cuda_norm.launch_rule(shape[2] * shape[3], es)}); K4s "
+                  f"{ms_s:.4f} ms (plain {plain_s:.4f}, torch.batch_norm_stats {lib_s:.4f}, "
+                  f"bound {bms_s:.4f}; {ms_s / lib_s:.2f}x the library)")
+            k4.append(dict(shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=bms, bound_by=by, library_ms=lib,
+                           stats=dict(max_abs_err=err_s, ms=ms_s, plain_ms=plain_s,
+                                      bound_ms=bms_s, bound_by=by_s, library_ms=lib_s)))
+            del x, ref, out
+        results[("K4", dtype)] = {**{k: v for k, v in k4[0].items()
+                                     if k not in ("shape", "stats")},
+                                  "shapes": [{k: v for k, v in r.items() if k != "stats"}
+                                             for r in k4]}
+        results[("K4s", dtype)] = {**k4[0]["stats"],
+                                   "shapes": [{"shape": r["shape"], **r["stats"]} for r in k4]}
+        k4_extra_checks(torch, randn, dtype)
         # a zero voxel's planes (a stream's first previous voxel) are constant:
         # variance 0, so a rounding error of the mean (a few 1e-8) is scaled by
         # 1/sqrt(eps) = 316; 1e-4 bounds it

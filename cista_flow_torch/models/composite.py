@@ -46,15 +46,15 @@ class _Composite(nn.Module):
     def _warp_inputs(self, rec_img0, state: CistaState, flow_final):
         """Warp the previous frame (full res) and the sparse code (half res)
         along the flow, keeping the reference's zero-flow short-circuit
-        (ref: e2v_model.py:184-185) as a device-side select: no host sync."""
+        (ref: e2v_model.py:184-185): both warps take the device-side gate
+        ``any(flow != 0)`` and select inside the kernel, with no host sync."""
         cfg = self.cfg
-        warped_i = frame_warp(rec_img0, flow_final, mode=cfg.warp_mode)
+        any_flow = torch.any(flow_final)        # nonzero, as flow != 0
+        warped_i = frame_warp(rec_img0, flow_final, mode=cfg.warp_mode, gate=any_flow)
         half_flow = interpolate_scale(flow_final, cfg.scale_factor,
                                       align_corners=True)
-        warped_z = frame_warp(state.sparse_code, half_flow, mode=cfg.warp_mode)
-        any_flow = torch.any(flow_final != 0)
-        warped_i = torch.where(any_flow, warped_i, rec_img0)
-        warped_z = torch.where(any_flow, warped_z, state.sparse_code)
+        warped_z = frame_warp(state.sparse_code, half_flow, mode=cfg.warp_mode,
+                              gate=any_flow)
         return warped_i, state._replace(sparse_code=warped_z)
 
     def reconstruct(self, events, rec_img0, state: CistaState, flow_final):

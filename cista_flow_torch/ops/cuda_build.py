@@ -160,7 +160,16 @@ def check_cuda(name: str, dtypes, *tensors) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream's raw ``cudaStream_t`` on ``device``, read without
+    building a ``torch.cuda.Stream`` object (which costs the host several
+    microseconds on every launch). ``torch._C._cuda_getCurrentRawStream`` is
+    private to PyTorch; where a build lacks it, the public
+    ``current_stream().cuda_stream`` gives the same pointer."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return raw(index)
 
 
 def on_cpu(t: torch.Tensor) -> bool:

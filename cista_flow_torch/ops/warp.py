@@ -77,16 +77,19 @@ def frame_warp_coords(flow: torch.Tensor, sign: float):
     return (nx + 1.0) * 0.5 * (w - 1), (ny + 1.0) * 0.5 * (h - 1)
 
 
-def frame_warp(img: torch.Tensor, flow: torch.Tensor,
-               mode: str = "forward") -> torch.Tensor:
+def frame_warp(img: torch.Tensor, flow: torch.Tensor, mode: str = "forward",
+               gate: torch.Tensor | None = None) -> torch.Tensor:
     """``FrameWarp.warp_frame`` (ref: utils/flow_utils.py:193-221):
     mode='forward' samples at grid - flow, 'backward' at grid + flow.
-    img (B, C, H, W); flow (B, 2, H, W) f32."""
+    img (B, C, H, W); flow (B, 2, H, W) f32. ``gate``: None, or a 0-dim
+    bool tensor on img's device; where it is false the result is ``img``
+    unchanged (the reference's zero-flow short-circuit, selected on the
+    device inside the kernel)."""
     from . import cuda_aug
     if mode == "forward":
-        return cuda_aug.warp_reflect(img, flow, -1.0)
+        return cuda_aug.warp_reflect(img, flow, -1.0, gate)
     if mode == "backward":
-        return cuda_aug.warp_reflect(img, flow, 1.0)
+        return cuda_aug.warp_reflect(img, flow, 1.0, gate)
     raise ValueError(f"unknown warp mode {mode}")
 
 
