@@ -15,10 +15,18 @@ Phases (any failure raises and the exit code is non-zero):
     same function, of that call (``library_ms``; the port never calls it),
     from the kernel time of a profiler trace, so that the host's time to
     issue a call is not counted (``profile_kernels.device_ms``).
-    K3, K3a and K5 also at ragged small shapes on the tensor-core tile and
-    at 32 channels on the direct tile, after an in-place weight update (the
-    repack cache must notice it), and per launch kind (one D and one P conv
-    beside ``F.pad`` + ``F.conv2d``). K2 also at ragged shapes and past
+    K1 at batch 8, at the cista-eraft window's 98,304 samples and at a
+    ragged 48x48 frame (batch 3, an empty level), with far coordinates and
+    ones whose per-offset floor moves on; in bf16 also against the plain
+    version on the same bf16 pyramid, where only the summation order
+    differs (one bf16 step); and after an in-place update of convc1's
+    weight (the packed weight's cache must notice it).
+    K3, K3a, K6 and K5 also at ragged small shapes on the tensor-core tile
+    and at 32 channels on the direct tile, K3 and K5 after an in-place
+    weight update (the repack cache must notice it), K3 per launch kind (one
+    D and one P conv beside ``F.pad`` + ``F.conv2d``), K6 beside K3a (the
+    same loop on the same tile, one launch against 2*depth + 3). K2 also at
+    ragged shapes and past
     65535 samples, with flows several periods of the fold out and the
     zero-flow gate true and false;
     K4 and K4s also at plane sizes that take each launch route (1 to 40000
@@ -37,7 +45,7 @@ Phases (any failure raises and the exit code is non-zero):
  4c. variant windows (4 steps, f32, depth 5): the ISTA loop through K3a and
     through K6, the encoders' norms through K4s, each held against the
     default route.
-The last lines are the ``kernels`` JSON (K2, K4 and K4s with a row for
+The last lines are the ``kernels`` JSON (K1, K2, K4 and K4s with a row for
 each timed shape under ``shapes``), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -325,6 +333,79 @@ def window_entries(coords, sizes, radius: int = 4) -> int:
     return total
 
 
+def k1_checks(torch, randn, dtype) -> dict:
+    """K1 at ``CORR_SHAPES`` (batch 8, the cista-eraft window's 98,304
+    samples, a 48x48 frame at batch 3 whose last level is empty), with
+    coordinates far outside the levels and ones whose per-offset floor
+    moves on (c/2^l + d rounds up to an integer). Without convc1 against
+    the plain version on the f32 pyramid; with convc1 in f32 at 1e-5
+    relative, in bf16 twice: against the plain version on the f32 pyramid
+    (4 rounding steps: the window's rounding to bf16 is the kernel's and
+    not that reference's) and on the same bf16 pyramid, where the two round
+    at the same points and differ by summation order alone: one bf16
+    rounding step of the output (2 half-steps at its largest magnitude).
+    Then once more after an in-place update of convc1's weight. Times:
+    with and without convc1 at the first two shapes."""
+    from cista_flow_torch.ops import cuda_corr
+    from cista_flow_torch.ops.corr import CorrPyramid, coords_grid
+    from cista_flow_torch.profile_kernels import CORR_SHAPES
+
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    es = torch.tensor([], dtype=dt).element_size()
+    rows = []
+    for b, h1, w1 in CORR_SHAPES:
+        n = b * h1 * w1
+        sizes = tuple((h1 >> lvl, w1 >> lvl) for lvl in range(4))
+        levels = tuple(randn(n, hl, wl).to(dt) for hl, wl in sizes)
+        pyr = CorrPyramid(levels, b, h1, w1)
+        pyr32 = CorrPyramid(tuple(lv.float() for lv in levels), b, h1, w1)
+        coords = coords_grid(b, h1, w1, dev) + randn(b, 2, h1, w1, scale=4.0)
+        coords[0, :, 0, :4] = torch.tensor([[-1e4, 5e3, 40.5, -9.0],
+                                            [3e4, -2e4, -4.5, 30.0]], device=dev)
+        below4 = float(np.nextafter(np.float32(4.0), np.float32(0.0)))
+        coords[-1, :, -1, -2:] = torch.tensor([[below4, -1e-8], [-1e-8, 2.0 - 1e-7]], device=dev)
+        wproj = randn(256, 324, 1, 1, scale=324 ** -0.5).to(dt)
+        bproj = randn(256, scale=0.1).to(dt)
+        tag = f"K1 ({b},{h1},{w1})"
+        ref = cuda_corr.lookup_plain(pyr32, coords)
+        compare(torch, f"{tag} lookup (324 ch)", dtype, cuda_corr.lookup(pyr, coords), ref,
+                1e-5 if dtype == "float32" else bf16_tol(ref, 2))
+        ref = cuda_corr.lookup_plain(pyr32, coords, wproj.float(), bproj.float())
+        out = cuda_corr.lookup(pyr, coords, wproj, bproj)
+        err = compare(torch, f"{tag} + convc1", dtype, out, ref,
+                      f32_tol(ref) if dtype == "float32" else bf16_tol(ref, 4))
+        if dtype == "bfloat16":
+            same = cuda_corr.lookup_plain(pyr, coords, wproj, bproj)
+            err = compare(torch, f"{tag} + convc1, same bf16 pyramid", dtype, out, same,
+                          bf16_tol(same, 2))
+        if (b, h1, w1) == CORR_SHAPES[-1]:
+            wproj.mul_(-0.5)
+            bproj.add_(0.05)
+            ref = cuda_corr.lookup_plain(pyr, coords, wproj, bproj)
+            compare(torch, f"{tag} after an in-place weight update", dtype,
+                    cuda_corr.lookup(pyr, coords, wproj, bproj), ref,
+                    f32_tol(ref) if dtype == "float32" else bf16_tol(ref, 2))
+            continue
+        ms = time_ms(torch, lambda: cuda_corr.lookup(pyr, coords, wproj, bproj))
+        ms_gather = time_ms(torch, lambda: cuda_corr.lookup(pyr, coords))
+        plain = time_ms(torch, lambda: cuda_corr.lookup_plain(pyr, coords, wproj, bproj))
+        touched = window_entries(coords, sizes) * es + coords.numel() * 4
+        nbytes = touched + wproj.numel() * es + bproj.numel() * 4 + n * 256 * es
+        ops = n * (2 * 324 * 256 + 324 * 12)
+        bms, by = bound(nbytes, ops, dtype)
+        gather_bms, _ = bound(touched + n * 324 * es, n * 324 * 12, "float32")
+        rate = (f"{ops / ms * 1e-9:.1f} TFLOP/s" if by == "operations"
+                else f"{nbytes / ms * 1e-9:.2f} TB/s")
+        print(f"  {tag} {dtype}: {ms:.4f} ms (plain {plain:.4f}, bound {bms:.4f} by {by}; "
+              f"{rate}); gather alone (324 ch out) {ms_gather:.4f} ms (bound "
+              f"{gather_bms:.4f} by bytes)")
+        rows.append(dict(shape=[b, h1, w1], max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=bms, bound_by=by, library_ms=None, gather_ms=ms_gather))
+    return {**{k: v for k, v in rows[0].items() if k not in ("shape", "gather_ms")},
+            "shapes": rows}
+
+
 def kernel_checks(torch):
     """Phase 3. Each kernel on seeded inputs at the serving shapes; the
     plain version runs on the same inputs (upcast to f32 for bf16, so that
@@ -332,7 +413,6 @@ def kernel_checks(torch):
     import torch.nn.functional as F
     from cista_flow_torch.ops import (cuda_aug, cuda_conv, cuda_corr, cuda_ista, cuda_ista2,
                                       cuda_norm)
-    from cista_flow_torch.ops.corr import CorrPyramid, coords_grid
     from cista_flow_torch.profile_kernels import (NORM_SHAPES, WARP_SHAPES,
                                                   batch_norm_stats_call, grid_sample_call)
 
@@ -348,34 +428,10 @@ def kernel_checks(torch):
         dt = getattr(torch, dtype)
         es = torch.tensor([], dtype=dt).element_size()
 
-        # K1: 4 pyramid levels at 1/8 res of the padded 192x256 frame
-        b, h1, w1 = BATCH, 24, 32
-        n = b * h1 * w1
-        sizes = ((24, 32), (12, 16), (6, 8), (3, 4))
-        levels = tuple(randn(n, hl, wl).to(dt) for hl, wl in sizes)
-        pyr = CorrPyramid(levels, b, h1, w1)
-        coords = coords_grid(b, h1, w1, dev) + randn(b, 2, h1, w1, scale=4.0)
-        coords[0, :, 0, :4] = torch.tensor([[-1e4, 5e3, 40.5, -9.0],
-                                            [3e4, -2e4, -4.5, 30.0]], device=dev)
-        wproj = randn(256, 324, 1, 1, scale=324 ** -0.5).to(dt)
-        bproj = randn(256, scale=0.1).to(dt)
-        pyr32 = CorrPyramid(tuple(lv.float() for lv in levels), b, h1, w1)
-        ref = cuda_corr.lookup_plain(pyr32, coords)
-        out = cuda_corr.lookup(pyr, coords)
-        compare(torch, "K1 lookup (324 ch)", dtype, out, ref,
-                1e-5 if dtype == "float32" else bf16_tol(ref, 2))
-        ref = cuda_corr.lookup_plain(pyr32, coords, wproj.float(), bproj.float())
-        out = cuda_corr.lookup(pyr, coords, wproj, bproj)
-        err = compare(torch, "K1 lookup + convc1 (256 ch)", dtype, out, ref,
-                      f32_tol(ref) if dtype == "float32" else bf16_tol(ref, 4))
-        ms = time_ms(torch, lambda: cuda_corr.lookup(pyr, coords, wproj, bproj))
-        plain = time_ms(torch, lambda: cuda_corr.lookup_plain(pyr, coords, wproj, bproj))
-        nbytes = (window_entries(coords, sizes) * es + coords.numel() * 4
-                  + (wproj.numel() + bproj.numel()) * es + n * 256 * es)
-        ops = n * (2 * 324 * 256 + 324 * 12)
-        bms, by = bound(nbytes, ops, dtype)
-        results[("K1", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                      bound_ms=bms, bound_by=by, library_ms=None)
+        # K1: 4 pyramid levels at 1/8 res of the padded 192x256 frame, at
+        # batch 8, at the cista-eraft window's T*8 samples and at a ragged
+        # shape with an empty level
+        results[("K1", dtype)] = k1_checks(torch, randn, dtype)
 
         # K2: sparse-code warp (C=128, half res) and frame warp (C=1, full res),
         # timed as the serving path calls it: with the zero-flow gate on the card
@@ -441,7 +497,6 @@ def kernel_checks(torch):
             print(f"  K3 depth {depth} {dtype}: {ms:.4f} ms (plain {plain:.4f}, "
                   f"bound {bms:.4f} by {by}; {ms / plain:.2f}x the chain of library "
                   f"convs, {ops / ms * 1e-9:.1f} TFLOP/s)")
-            ms_k3 = ms
             if depth == 5:
                 results[("K3", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                               bound_ms=bms, bound_by=by, library_ms=None)
@@ -451,6 +506,7 @@ def kernel_checks(torch):
             ops = 2 * depth * 2 * 9 * (2 * c) * c * BATCH * hh * ww
             bms, by = bound(nbytes, ops, dtype)
             plain = time_ms(torch, lambda: cuda_ista2.ista_loop_plain(wts, x1, z, depth))
+            loop_ms = {}
             for key, fn in (("K3a", cuda_ista2.fused_ista_v2), ("K6", cuda_ista.fused_ista)):
                 z_before = z.clone()
                 out = fn(wts, x1, z, depth)
@@ -458,13 +514,13 @@ def kernel_checks(torch):
                               f32_tol(ref) if dtype == "float32" else bf16_tol(ref, 8))
                 if not torch.equal(z, z_before):
                     raise AssertionError(f"{key} modified its input z")
-                ms = time_ms(torch, lambda: fn(wts, x1, z, depth))
+                ms = loop_ms[key] = time_ms(torch, lambda: fn(wts, x1, z, depth))
                 print(f"  {key} depth {depth} {dtype}: {ms:.4f} ms (plain {plain:.4f}, "
-                      f"bound {bms:.4f} by {by})")
+                      f"bound {bms:.4f} by {by}; {ops / ms * 1e-9:.1f} TFLOP/s)")
                 if key == "K6":
-                    # K6 keeps the direct CUDA-core tile: the yardstick for
-                    # the inner product K3 ran before the tensor-core tile
-                    print(f"  K3 / K6 depth {depth} {dtype}: {ms_k3 / ms:.3f}")
+                    # the same loop on the same tile: one cooperative launch
+                    # against 2*depth + 3 launches
+                    print(f"  K6 / K3a depth {depth} {dtype}: {ms / loop_ms['K3a']:.3f}")
                 if depth == 5:
                     results[(key, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                                  bound_ms=bms, bound_by=by, library_ms=None)
@@ -570,12 +626,12 @@ def kernel_checks(torch):
 
 
 def k3_extra_checks(torch, randn, g, dtype, x1, z, wts, gw, gb):
-    """K3 and K3a beyond the serving shape: ragged small shapes (C = 64: the
-    tensor-core tile in bf16; C = 32: the direct tile), an in-place weight
-    update, and at the serving shape one D and one P launch beside the
+    """K3, K3a and K6 beyond the serving shape: ragged small shapes (C = 64:
+    the tensor-core tile in bf16; C = 32: the direct tile) at depth 1, 3
+    and 5, an in-place weight update of K3's, and at the serving shape one D and one P launch beside the
     PyTorch calls for the same conv (``F.pad`` + ``F.conv2d``)."""
     import torch.nn.functional as F
-    from cista_flow_torch.ops import conv_tile, cuda_ista2
+    from cista_flow_torch.ops import conv_tile, cuda_ista, cuda_ista2
 
     dt = getattr(torch, dtype)
 
@@ -598,13 +654,15 @@ def k3_extra_checks(torch, randn, g, dtype, x1, z, wts, gw, gb):
         xs = randn(bsz, c, hh, ww).to(dt)
         zs = randn(bsz, 2 * c, hh, ww, scale=0.1).to(dt)
         ws, gws, gbs = weights(c)
-        for depth in (1, 3):
+        for depth in (1, 3, 5):
             ref = cuda_ista2.fused_ista_dg_plain(f32(ws), gws.float(), gbs.float(),
                                                  xs.float(), zs.float(), depth)
             compare(torch, f"K3 ista+Dg ({bsz},{c},{hh},{ww}) depth {depth}", dtype,
                     cuda_ista2.fused_ista_dg(ws, gws, gbs, xs, zs, depth), ref, tol(ref))
             compare(torch, f"K3a ista loop ({bsz},{c},{hh},{ww}) depth {depth}", dtype,
                     cuda_ista2.fused_ista_v2(ws, xs, zs, depth), ref[0], tol(ref[0]))
+            compare(torch, f"K6 ista loop ({bsz},{c},{hh},{ww}) depth {depth}", dtype,
+                    cuda_ista.fused_ista(ws, xs, zs, depth), ref[0], tol(ref[0]))
         if c == 64 and hh > 2:
             ws[0].mul_(0.5)
             ws[2].add_(0.01)

@@ -2,30 +2,38 @@
 
 Counterpart of cista_flow_tpu/ops/pallas_corr.py ``lookup_corr_pallas``.
 CUDA tensors go to the kernel (or raise); CPU tensors take the plain
-version below.
+version below. Both round where the JAX kernel does: the window to the
+pyramid's dtype, the weight to it too, the products summed and the bias
+added in f32, one rounding at the end. The kernel takes the convc1 weight
+packed once per weight tensor (``corr_tile.packed_corr_weights``) and the
+bias as f32 (``conv_tile.cast_cached``), so a call launches K1 alone.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .conv_tile import cast_cached
 from .corr import CorrPyramid, lookup_corr
+from .corr_tile import packed_corr_weights
 from .cuda_build import DTYPE_CODES, I, Kernel, P, check_cuda, on_cpu, stream_ptr
 
 KERNEL = Kernel("corr.cu", {"cista_corr_lookup": [I, I, P, P, P, P, I, I, I, I,
                                                   I, I, I, I, P, P, P, P, I, I, P]})
 RADIUS = 4
 LEVELS = 4
-PROJ_CHANNELS = 256   # the kernel's fused output width (one thread each)
+PROJ_CHANNELS = 256   # the kernel's fused output width
 
 
 def lookup_plain(pyr: CorrPyramid, coords: torch.Tensor, weight=None,
                  bias=None) -> torch.Tensor:
-    """lookup_corr, then relu(1x1 conv + bias) when ``weight`` is given."""
+    """lookup_corr, then relu(1x1 conv + bias) when ``weight`` is given:
+    the window and the weight in the pyramid's dtype, the sum and the bias
+    in f32, rounded once."""
     c = lookup_corr(pyr, coords, RADIUS)
     if weight is None:
         return c
-    y = F.conv2d(c.float(), weight.float(), bias.float())
+    y = F.conv2d(c.float(), weight.to(c.dtype).float(), bias.float())
     return torch.relu(y).to(c.dtype)
 
 
@@ -56,10 +64,10 @@ def lookup(pyr: CorrPyramid, coords: torch.Tensor, weight=None,
     if proj:
         if weight.shape != (PROJ_CHANNELS, LEVELS * 81, 1, 1) or bias.shape != (PROJ_CHANNELS,):
             raise ValueError(f"corr kernel projects 324 -> {PROJ_CHANNELS} only")
-        # (324, 256), the layout the kernel streams through shared memory
-        wt = weight.reshape(PROJ_CHANNELS, -1).t().contiguous().to(dt)
-        bias = bias.contiguous().to(dt)
-        check_cuda("corr_lookup", (dt,), wt, bias, levels[0])
+        wt = packed_corr_weights(weight, dt)
+        bias = cast_cached(bias, torch.float32)
+        check_cuda("corr_lookup", (dt,), wt, levels[0])
+        check_cuda("corr_lookup", (torch.float32,), bias, coords)
         out = torch.empty((b, PROJ_CHANNELS, h1, w1), dtype=dt, device=coords.device)
     else:
         wt = bias = None

@@ -1,5 +1,7 @@
-"""Device and host time of the warp (K2) and the instance norm (K4, K4s), beside
-the one PyTorch call for each function, on the package in the current directory.
+"""Device and host time of the correlation lookup (K1), the warp (K2), the
+instance norm (K4, K4s) and the ISTA loop (K3a, K6), beside the one PyTorch
+call for each function where there is one, on the package in the current
+directory.
 
     python3 -m cista_flow_torch.profile_kernels
     cd build/parent && python3 ../../cista_flow_torch/profile_kernels.py
@@ -8,12 +10,14 @@ The second form times another tree (for example a parent commit unpacked
 with ``git archive``) in the same call, with this file's timing: it imports
 ``cista_flow_torch`` from the current directory and uses only the wrappers'
 common arguments. The shapes and the library calls are the ones
-``chip_smoke.py`` times (it takes them from here): K2 at ``WARP_SHAPES``, K4
-at ``NORM_SHAPES``. Prints, per kernel, the device ms per call
-(``device_ms``), the host microseconds to issue one call while the card is
-busy, and the library call's device ms, with the card's name and power
-limit. K2 is timed with and without its zero-flow gate where the tree's
-wrapper takes one (the serving path passes it). Needs a CUDA card.
+``chip_smoke.py`` times (it takes them from here): K1 at ``CORR_SHAPES``
+(with and without convc1), K2 at ``WARP_SHAPES``, K4 at ``NORM_SHAPES``,
+K3a and K6 at ``ISTA_SHAPE`` and depth 5. Prints, per kernel, the device
+ms per call (``device_ms``), the host microseconds to issue one call while
+the card is busy, and the library call's device ms, with the card's name
+and power limit. K2 is timed with and without its zero-flow gate where the
+tree's wrapper takes one (the serving path passes it). ``--only K1,K6``
+times those kernels alone. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -32,6 +36,12 @@ WARP_SHAPES = ((BATCH, 128, 90, 120), (BATCH, 1, 180, 240))
 # and fnet's largest at the cista-eraft window's (T + 1) * 8 samples, T = 16
 NORM_SHAPES = ((BATCH, 64, 96, 128), (BATCH, 96, 48, 64), (BATCH, 128, 24, 32),
                (17 * BATCH, 64, 96, 128))
+# K1 (B, H1, W1): the 1/8-res grid of the padded 192x256 frame at batch 8,
+# the cista-eraft window's T * 8 samples (n = 98,304, T = 16), and a 48x48
+# frame at batch 3 (levels 6x6 .. 0x0: ragged, the last one empty)
+CORR_SHAPES = ((BATCH, 24, 32), (16 * BATCH, 24, 32), (3, 6, 6))
+# K3a, K6: the CISTA code (B, C, H, W) at half of 180x240
+ISTA_SHAPE = (BATCH, 64, 90, 120)
 
 
 def grid_sample_call(img: torch.Tensor, flow: torch.Tensor, sign: float):
@@ -110,12 +120,48 @@ def host_us(fn, calls: int = 200) -> float:
     return us
 
 
-def main() -> int:
+def corr_inputs(shape, dt, g):
+    """Seeded K1 inputs at (B, H1, W1): the pyramid, coordinates around the
+    grid, the convc1 weight and bias."""
+    from cista_flow_torch.ops.corr import CorrPyramid, coords_grid
+
+    b, h1, w1 = shape
+    dev = torch.device("cuda")
+    n = b * h1 * w1
+    levels = tuple(torch.randn(n, h1 >> lvl, w1 >> lvl, generator=g, device=dev).to(dt)
+                   for lvl in range(4))
+    coords = coords_grid(b, h1, w1, dev) + 4.0 * torch.randn(b, 2, h1, w1, generator=g,
+                                                             device=dev)
+    wp = (torch.randn(256, 324, 1, 1, generator=g, device=dev) / 18).to(dt)
+    bp = (0.1 * torch.randn(256, generator=g, device=dev)).to(dt)
+    return CorrPyramid(levels, b, h1, w1), coords, wp, bp
+
+
+def ista_inputs(dt, g):
+    """Seeded K3a/K6 inputs at ``ISTA_SHAPE``: weights (dw, db, pw, pb, lam),
+    x1 and z."""
+    dev = torch.device("cuda")
+    b, c, h, w = ISTA_SHAPE
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
+
+    wts = (rnd(c, 2 * c, 3, 3, scale=(18 * c) ** -0.5), rnd(c, scale=0.05),
+           rnd(2 * c, c, 3, 3, scale=(9 * c) ** -0.5), rnd(2 * c, scale=0.05),
+           (torch.rand(2 * c, generator=g, device=dev) * 0.01).to(dt))
+    return wts, rnd(b, c, h, w), rnd(b, 2 * c, h, w, scale=0.1)
+
+
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels needs a CUDA card")
+    only = set(argv[1].split(",")) if len(argv) == 2 and argv[0] == "--only" else None
     sys.path.insert(0, os.getcwd())
     import torch.nn.functional as F
-    from cista_flow_torch.ops import cuda_aug, cuda_norm
+    from cista_flow_torch.ops import cuda_aug, cuda_corr, cuda_ista, cuda_ista2, cuda_norm
+
+    def want(key):
+        return only is None or key in only
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -125,7 +171,19 @@ def main() -> int:
     gated = "gate" in inspect.signature(cuda_aug.warp_reflect).parameters
     gate = torch.tensor(True, device=dev)
     for dt in (torch.bfloat16, torch.float32):
-        for shape in WARP_SHAPES:
+        for shape in CORR_SHAPES[:2] if want("K1") else ():
+            pyr, coords, wp, bp = corr_inputs(shape, dt, g)
+            kern = lambda: cuda_corr.lookup(pyr, coords, wp, bp)  # noqa: E731
+            print(f"  K1 {shape} {dt}: {device_ms(kern):.4f} ms, host {host_us(kern):.1f} us; "
+                  f"gather alone {device_ms(lambda: cuda_corr.lookup(pyr, coords)):.4f} ms")
+            del pyr, coords
+        if want("K6"):
+            wts, x1, z = ista_inputs(dt, g)
+            ms = {key: device_ms(lambda: fn(wts, x1, z, 5)) for key, fn in
+                  (("K3a", cuda_ista2.fused_ista_v2), ("K6", cuda_ista.fused_ista))}
+            print(f"  K3a {ISTA_SHAPE} depth 5 {dt}: {ms['K3a']:.4f} ms; K6 {ms['K6']:.4f} ms; "
+                  f"K6 / K3a {ms['K6'] / ms['K3a']:.3f}")
+        for shape in WARP_SHAPES if want("K2") else ():
             img = torch.randn(*shape, generator=g, device=dev).to(dt)
             flow = torch.randn(shape[0], 2, *shape[2:], generator=g, device=dev) * 3.0
             kern = lambda: cuda_aug.warp_reflect(img, flow, -1.0)  # noqa: E731
@@ -135,7 +193,7 @@ def main() -> int:
                 line += (f"; gated {device_ms(lambda: cuda_aug.warp_reflect(img, flow, -1.0, gate)):.4f}"
                          " ms")
             print(line)
-        for shape in NORM_SHAPES:
+        for shape in NORM_SHAPES if want("K4") else ():
             x = torch.randn(*shape, generator=g, device=dev).to(dt)
             kern = lambda: cuda_norm.instance_norm_fused(x, relu=True)  # noqa: E731
             stats = lambda: cuda_norm.instance_norm_stats(x)  # noqa: E731
@@ -147,4 +205,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

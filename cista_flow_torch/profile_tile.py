@@ -25,14 +25,15 @@ import torch
 from .ops import conv_tile
 from .ops.cuda_build import BUILD_DIR, CSRC, NVCC_FLAGS, I, P, _nvcc
 
-TILE, ISTA = "conv3x3_mma.cuh", "ista.cu"
+TILE, EPILOGUES = "conv3x3_mma.cuh", "ista_mma.cuh"
 NO_X = (TILE, "if (p < PIX) {", "if (p < 0) {")
 NO_W = (TILE, "for (int j = tid; j < TL::WS_CHUNKS; j += NT) {",
         "for (int j = tid; j < 0; j += NT) {")
 NO_MMA = (TILE, "wgmma_m64k16(acc[mt], da, db);", "")
-NO_EPILOGUE = (ISTA, "        const int c0 = n0 + mma::pair_channel();\n        // every aux",
+NO_EPILOGUE = (EPILOGUES,
+               "        const int c0 = n0 + conv3x3_mma::pair_channel();\n        // every aux",
                "        if (H > 0) return;\n"
-               "        const int c0 = n0 + mma::pair_channel();\n        // every aux")
+               "        const int c0 = n0 + conv3x3_mma::pair_channel();\n        // every aux")
 # name -> (file, text, replacement) edits of a copy of csrc/
 VARIANTS = {
     "whole kernel": (),
@@ -55,7 +56,7 @@ def build(name: str, edits):
         if old not in text:
             raise RuntimeError(f"{name}: {fname} no longer contains {old!r}")
         (src / fname).write_text(text.replace(old, new))
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(src / "ista.so"), str(src / ISTA)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(src / "ista.so"), str(src / "ista.cu")]
     return src, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
