@@ -9,7 +9,8 @@ Phases (any failure raises and the exit code is non-zero):
     source, in parallel) into the ignored ``build/kernels``;
  3. each of the eight kernels (K1, K2, K3, K3a, K4, K4s, K5, K6) against its
     plain PyTorch version on the card, at the shapes the serving paths give
-    it (180x240 frames, batch 8), in bf16 and f32 with TF32 off: max abs
+    it (180x240 frames, batch 8), in bf16 and f32 (cuDNN's TF32 off for the
+    phase, through the port's ``device.cudnn_fp32``): max abs
     error against a stated tolerance, and the device time per call of the
     kernel, of the plain version and, where one PyTorch call computes the
     same function, of that call (``library_ms``; the port never calls it),
@@ -44,10 +45,25 @@ Phases (any failure raises and the exit code is non-zero):
     ``step`` on the same voxels must agree with it;
  4c. variant windows (4 steps, f32, depth 5): the ISTA loop through K3a and
     through K6, the encoders' norms through K4s, each held against the
-    default route.
-The last lines are the ``kernels`` JSON (K1, K2, K4 and K4s with a row for
-each timed shape under ``shapes``), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+    default route;
+ 5. f32 at the process's TF32 defaults: one f32 ``Reconstructor`` (cista-eiflow
+    (6, 5)) held against the CPU within 1e-4 with cuDNN's flags as PyTorch
+    sets them (TF32 on): the runner turns TF32 off for its own calls and
+    restores the flags. The same model stepped outside the runner shows what
+    TF32 costs;
+ 6. the gate replay: the held-out sequences written by the port's simulator
+    (``data.sim.ensure_eval_data``), every row of tests/test_quality_gate.py
+    through ``evaluate.evaluate_sequences`` on the card, in f32 (each metric
+    within 0.2% of gate/targets_*.json) and bf16 (each metric's deviation
+    printed, psnr, ssim and epe held to the gate's absolute floors), with
+    the launch counts of every row;
+ 7. the ``cista-idnet`` path at (1, 2) and (1, 5), the checks of 4;
+ 8. one 160-step chunk (``bench.py``'s chunk) in bf16 against f32 at batch 1
+    at eiflow (1,1) and (6,5), eraft (1,1) and (12,5) and idnet (1,2): above
+    30 dB PSNR at every step.
+Each phase prints its time. The last lines are the ``kernels`` JSON (K1,
+K2, K4 and K4s with a row for each timed shape under ``shapes``), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -66,8 +82,27 @@ STEPS = 16
 PSNR_MIN = 30.0          # the JAX package's bf16 drift rule (tests/test_bf16_drift.py)
 POINTS = ((1, 1, "gate/flagship_ft1_f16.npz"), (6, 5, "gate/flagship_sim40_f16.npz"))
 ERAFT_POINTS = ((1, 1, "gate/eraft_ft1_f16.npz"), (12, 5, "gate/eraft_sim40_f16.npz"))
+IDNET_POINTS = ((1, 2, "gate/idnet_ft2_f16.npz"), (1, 5, "gate/idnet_sim40_f16.npz"))
 NORMS = 15               # instance norms in one BasicEncoder call
 SQUARE_CONVS = 7         # its 64->64 and 128->128 3x3 convs (kernel K5)
+IDNET_SQUARE_CONVS = 3   # the LiteEncoder's 64->64 3x3 convs (K5), one call a step
+CHUNK = 160              # bench.py's chunk: steps of one bf16-vs-f32 drift run
+# tests/test_quality_gate.py:53-70: row -> (model_mode, anchor, targets, depth, iters)
+GATE_ROWS = {
+    "cista-eiflow": ("cista-eiflow", "flagship_sim40_f16", "targets_sim_eiflow.json", 5, None),
+    "cista-eraft": ("cista-eraft", "eraft_sim40_f16", "targets_sim_eraft.json", 5, None),
+    "cista-idnet": ("cista-idnet", "idnet_sim40_f16", "targets_sim_idnet.json", 5, None),
+    "serve-eiflow-d1i1": ("cista-eiflow", "flagship_ft1_f16", "targets_sim_flagship_ft1.json",
+                          1, 1),
+    "serve-idnet-d2": ("cista-idnet", "idnet_ft2_f16", "targets_sim_idnet_ft2.json", 2, None),
+    "serve-eraft-d1i1": ("cista-eraft", "eraft_ft1_f16", "targets_sim_eraft_ft1.json", 1, 1),
+}
+# tests/test_quality_gate.py:32-44: the absolute floors of a trained anchor
+GATE_FLOORS = {"cista-eiflow": {"psnr": 22.5, "ssim": 0.75, "epe": 1.0},
+               "cista-eraft": {"psnr": 22.0, "ssim": 0.72, "epe": 1.6},
+               "cista-idnet": {"psnr": 22.0, "ssim": 0.72, "epe": 3.0}}
+GATE_FRAMES = 30         # frames per held-out sequence; 2 sequences
+GATE_TOLERANCE = 0.002
 HBM_BYTES_PER_S = 3.35e12                                    # H100 SXM
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}            # tensor-core bf16; f32 non-tensor
 
@@ -114,8 +149,7 @@ def main(argv) -> int:
         print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from cista_flow_torch.device import cudnn_fp32
     t_start = time.perf_counter()
 
     # ---- 1. the card ------------------------------------------------------
@@ -140,18 +174,23 @@ def main(argv) -> int:
         print(f"  ptxas {k.name}: {ptxas_summary(k.build_log)}")
 
     # ---- 3. kernels against their plain versions --------------------------
-    checks = kernel_checks(torch)
+    # (the f32 plain versions are cuDNN convs: held in full f32 for the phase)
+    with cudnn_fp32():
+        checks = kernel_checks(torch)
     torch.cuda.synchronize()
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     if argv:
         return 0
 
-    # ---- 4. the main paths ------------------------------------------------
+    # ---- 4.-8. the main paths, at the process's own TF32 flags -----------
     launches = {k: 0 for k in counters}
-    for phase in (flagship_path, eraft_path, variant_windows):
+    for phase in (flagship_path, eraft_path, variant_windows, f32_at_default_flags,
+                  gate_replay, idnet_path, long_chunks):
+        t_phase = time.perf_counter()
         for key, n in phase(torch, repo, counters).items():
             launches[key] += n
-        print(f"{phase.__name__} done at {time.perf_counter() - t_start:.1f} s")
+        now = time.perf_counter()
+        print(f"{phase.__name__}: {now - t_phase:.1f} s, done at {now - t_start:.1f} s")
     idle = [k for k, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")
@@ -740,6 +779,25 @@ def expect_launches(tag: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{tag}: launch counts {got}, expected {want}")
 
 
+def window_launches(mode: str, iters: int, steps: int) -> dict:
+    """Launches of one ``step_window`` of ``steps`` steps at batch 1 or B.
+    cista-eiflow, per step: K1 per GRU iteration, the two warps, one ISTA
+    call, fnet's and enet's norms, K5 for the three encoders' square convs
+    and the upsamp conv. cista-eraft (the time-parallel window): fnet once
+    over the T+1 voxels and cnet once over T, one flow call (K1 per GRU
+    iteration), then per step the warps, the ISTA call and the upsamp conv.
+    cista-idnet, per step: the warps, the ISTA call, K5 for the
+    LiteEncoder's three 64->64 convs (one call over all bins) and the upsamp
+    conv; no correlation and no norms."""
+    if mode == "cista-eiflow":
+        return {"K1": iters * steps, "K2": 2 * steps, "K3": steps,
+                "K4": 2 * NORMS * steps, "K5": (3 * SQUARE_CONVS + 1) * steps}
+    if mode == "cista-eraft":
+        return {"K1": iters, "K2": 2 * steps, "K3": steps, "K4": NORMS,
+                "K5": 2 * SQUARE_CONVS + steps}
+    return {"K2": 2 * steps, "K3": steps, "K5": (IDNET_SQUARE_CONVS + 1) * steps}
+
+
 def check_outputs(out, flows, steps: int) -> None:
     if out.shape != (steps, H, W) or flows.shape != (steps, 2, H, W):
         raise AssertionError(f"output shapes {out.shape} {flows.shape}")
@@ -830,9 +888,8 @@ def flagship_path(torch, repo: Path, counters: dict) -> dict:
     print(f"flagship path: Reconstructor.step_window, cista-eiflow, {H}x{W}, {STEPS} steps")
     total = {k: 0 for k in counters}
     for iters, depth, path in POINTS:
-        want = {"K1": iters * STEPS, "K2": 2 * STEPS, "K3": STEPS,
-                "K4": 2 * NORMS * STEPS, "K5": (3 * SQUARE_CONVS + 1) * STEPS}
-        got = serving_point(torch, repo, counters, "cista-eiflow", iters, depth, path, want)
+        got = serving_point(torch, repo, counters, "cista-eiflow", iters, depth, path,
+                            window_launches("cista-eiflow", iters, STEPS))
         for key in total:
             total[key] += got[key]
     return total
@@ -846,8 +903,7 @@ def eraft_path(torch, repo: Path, counters: dict) -> dict:
     print(f"cista-eraft path: time-parallel step_window and step, {H}x{W}, {STEPS} steps")
     total = {k: 0 for k in counters}
     for iters, depth, path in ERAFT_POINTS:
-        window = {"K1": iters, "K2": 2 * STEPS, "K3": STEPS, "K4": NORMS,
-                  "K5": 2 * SQUARE_CONVS + STEPS}
+        window = window_launches("cista-eraft", iters, STEPS)
         steps = {"K1": iters * STEPS, "K2": 2 * STEPS, "K3": STEPS, "K4": NORMS * STEPS,
                  "K5": (2 * SQUARE_CONVS + 1) * STEPS}
         got = serving_point(torch, repo, counters, "cista-eraft", iters, depth, path,
@@ -873,8 +929,7 @@ def variant_windows(torch, repo: Path, counters: dict) -> dict:
                  path_to_test_model=str(repo / path))
     ev = voxels(4, steps)
     print(f"variant windows: cista-eraft ({iters},{depth}), {steps} steps, f32")
-    base = {"K1": iters, "K2": 2 * steps, "K3": steps, "K4": NORMS,
-            "K5": 2 * SQUARE_CONVS + steps}
+    base = window_launches("cista-eraft", iters, steps)
     ref = Reconstructor(cfg, device="cuda").step_window(ev, return_all=True)
     total = {k: 0 for k in counters}
     for tag, ista, norm, change in (
@@ -893,6 +948,181 @@ def variant_windows(torch, repo: Path, counters: dict) -> dict:
             raise AssertionError(f"{tag}: differs from the default route by {err}")
         for key in total:
             total[key] += got[key]
+    return total
+
+
+def tf32_flags(torch) -> str:
+    """cuDNN's TF32 switches as this PyTorch reports them."""
+    cudnn = torch.backends.cudnn
+    try:
+        legacy = cudnn.allow_tf32
+    except RuntimeError:
+        legacy = "mixed"
+    conv = getattr(cudnn, "conv", None)
+    prec = getattr(conv, "fp32_precision", "absent")
+    return f"cudnn.allow_tf32={legacy}, cudnn.conv.fp32_precision={prec}"
+
+
+def f32_at_default_flags(torch, repo: Path, counters: dict) -> dict:
+    """Phase 5: nothing in this script sets cuDNN's TF32 flags, so they are
+    PyTorch's defaults (TF32 on for cuDNN convolutions). One f32
+    Reconstructor, cista-eiflow (6, 5), against the same port on the CPU
+    over 3 steps, with the flags as they were afterwards. The runner turns
+    TF32 off for its own calls (``device.cudnn_fp32``); the same model
+    stepped outside the runner, at the defaults, shows what TF32 does to an
+    f32 step. Tolerance 1e-4: with TF32 off the two sides differ only in
+    the order of f32 sums (1e-5 to 3e-5 at every point of phases 4 and 7 on
+    an H100), where TF32's 10-bit mantissa moves the flows by 1e-3."""
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.runner import Reconstructor
+
+    iters, depth, path = POINTS[1]
+    cfg = Config(image_dim=(H, W), depth=depth, flow_iters=iters,
+                 path_to_test_model=str(repo / path))
+    before = tf32_flags(torch)
+    print(f"f32 at the process's TF32 defaults ({before}): cista-eiflow ({iters},{depth}), "
+          "3 steps")
+    ev = voxels(2, 3)
+    cpu = Reconstructor(cfg, device="cpu").step_window(ev, return_all=True)
+    rec = Reconstructor(cfg, device="cuda")
+    gpu, got = counted(counters, lambda: rec.step_window(ev, return_all=True))
+    expect_launches("f32 at default flags", got, window_launches("cista-eiflow", iters, 3))
+    err = max(float(np.abs(a - b).max()) for a, b in zip(gpu, cpu))
+    after = tf32_flags(torch)
+    # the fault the runner's scoping removes: the model's own forward, unscoped
+    raw = Reconstructor(cfg, device="cuda")
+    recs, flows = [], []
+    with torch.no_grad():
+        for v in raw.device_events(ev):
+            out, flow, raw.state = raw.model(v, raw.prev_image, raw.state, iters=iters)
+            raw.prev_image = out
+            recs.append(out[0, 0].float().cpu().numpy())
+            flows.append(flow["flow_final"][0].float().cpu().numpy())
+    err_raw = max(float(np.abs(np.stack(recs) - cpu[0]).max()),
+                  float(np.abs(np.stack(flows) - cpu[1]).max()))
+    print(f"  runner, f32: max abs err against the CPU {err:.3e} (tol 1e-4); the model's "
+          f"forward outside the runner at these flags: {err_raw:.3e}; flags after: {after}")
+    if err > 1e-4:
+        raise AssertionError(f"f32 at the default flags differs from the CPU by {err}")
+    if after != before:
+        raise AssertionError(f"the runner left the flags changed: {before} -> {after}")
+    return got
+
+
+def gate_replay(torch, repo: Path, counters: dict) -> dict:
+    """Phase 6: the quality gate on the card. The held-out sequences come
+    from the port's simulator (2 sequences of 30 frames at 180x240, seed
+    0, written anew into the ignored build/gate_data); each row of the JAX package's
+    gate runs through ``evaluate.evaluate_sequences`` (one step_window per
+    GT frame interval, the last step scored on the host in f32, the first
+    3 frames skipped, the mean over sequences rounded to 4 places). f32:
+    every metric within 0.2% of its target (symmetric relative deviation,
+    denominators floored at 1e-3, as eval_harness). bf16: each metric's
+    deviation printed, psnr, ssim and epe held to the gate's floors.
+    Launches: every pack is one window of one step."""
+    import contextlib
+    import io
+    import shutil
+
+    from cista_flow_torch import evaluate
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.data.sim import ensure_eval_data
+
+    t0 = time.perf_counter()
+    # made anew each run: ensure_eval_data keeps any sequence it finds
+    data_dir = repo / "build" / "gate_data"
+    shutil.rmtree(data_dir, ignore_errors=True)
+    eval_dir = ensure_eval_data(str(data_dir), H, W, eval_frames=GATE_FRAMES, seed=0)
+    packs = 2 * (GATE_FRAMES - 1)
+    print(f"gate replay: held-out data in {time.perf_counter() - t0:.1f} s; "
+          f"{len(GATE_ROWS)} rows x (f32, bf16), {packs} packs each")
+    total = {k: 0 for k in counters}
+    failures = []
+    for row, (mode, stem, targets_name, depth, iters) in GATE_ROWS.items():
+        with open(repo / "gate" / targets_name) as f:
+            targets = json.load(f)
+        for dtype in ("float32", "bfloat16"):
+            cfg = Config(image_dim=(H, W), model_mode=mode, depth=depth, flow_iters=iters,
+                         dtype=dtype, path_to_test_model=str(repo / "gate" / f"{stem}.npz"),
+                         path_to_test_data=eval_dir, test_data_mode="upsampled",
+                         is_write_image=False)
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                (rows, keys, raw), got = counted(
+                    counters, lambda: evaluate.evaluate_sequences(cfg, device="cuda"))
+            secs = time.perf_counter() - t1
+            per_pack = window_launches(mode, cfg.default_flow_iters(), 1)
+            expect_launches(f"gate {row} {dtype}", got,
+                            {k: n * packs for k, n in per_pack.items()})
+            for key in total:
+                total[key] += got[key]
+            measured = evaluate.mean_metrics(rows, keys)
+            ok, _ = evaluate.compare(measured, targets, GATE_TOLERANCE)
+            dev = {k: (measured[k] - tv) / max(abs(tv), 1e-3) for k, tv in targets.items()}
+            print(f"  {row} {dtype} ({secs:.1f} s): max |dev| "
+                  f"{100 * max(abs(d) for d in dev.values()):.3f}%; "
+                  + ", ".join(f"{k} {measured[k]:.4f} ({100 * d:+.3f}%)" for k, d in dev.items()))
+            print("    unrounded: " + ", ".join(f"{k} {v:.6f}" for k, v in raw.items()))
+            if dtype == "float32" and not ok:
+                failures.append(f"{row} f32 beyond {100 * GATE_TOLERANCE:.1f}%: {dev}")
+            if dtype == "bfloat16":
+                fl = GATE_FLOORS[mode]
+                if not (measured["psnr"] > fl["psnr"] and measured["ssim"] > fl["ssim"]
+                        and measured["epe"] < fl["epe"]):
+                    failures.append(f"{row} bf16 past the floors {fl}: {measured}")
+    if failures:
+        raise AssertionError("gate replay: " + "; ".join(failures))
+    return total
+
+
+def idnet_path(torch, repo: Path, counters: dict) -> dict:
+    """Phase 7: cista-idnet at (1, 2) and (1, 5), stepped over the window
+    with the predicted next-step flow chained; the checks of phase 4."""
+    print(f"cista-idnet path: Reconstructor.step_window, {H}x{W}, {STEPS} steps")
+    total = {k: 0 for k in counters}
+    for iters, depth, path in IDNET_POINTS:
+        got = serving_point(torch, repo, counters, "cista-idnet", iters, depth, path,
+                            window_launches("cista-idnet", iters, STEPS))
+        for key in total:
+            total[key] += got[key]
+    return total
+
+
+def long_chunks(torch, repo: Path, counters: dict) -> dict:
+    """Phase 8: one 160-step chunk of seeded voxels as one window at batch
+    1, in bf16 and in f32, at every served point: bf16 above 30 dB PSNR
+    against f32 at every step (the JAX package's rule), launches counted."""
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.runner import Reconstructor
+
+    points = ([("cista-eiflow", *p) for p in POINTS] + [("cista-eraft", *p) for p in ERAFT_POINTS]
+              + [("cista-idnet", *IDNET_POINTS[0])])
+    ev = voxels(5, CHUNK)
+    print(f"{CHUNK}-step chunks: bf16 against f32, batch 1, {H}x{W}")
+    total = {k: 0 for k in counters}
+    for mode, iters, depth, path in points:
+        outs = {}
+        for dtype in ("float32", "bfloat16"):
+            rec = Reconstructor(Config(image_dim=(H, W), model_mode=mode, depth=depth,
+                                       flow_iters=iters, dtype=dtype,
+                                       path_to_test_model=str(repo / path)), device="cuda")
+            (out, flows), got = counted(counters, lambda: rec.step_window(ev, return_all=True))
+            tag = f"{mode} ({iters},{depth}) {dtype} {CHUNK}-step window"
+            expect_launches(tag, got, window_launches(mode, iters, CHUNK))
+            check_outputs(out, flows, CHUNK)
+            outs[dtype] = out
+            for key in total:
+                total[key] += got[key]
+            del rec
+        psnr = psnr_per_step(outs["float32"], outs["bfloat16"])
+        worst = int(np.argmin(psnr))
+        marks = [t for t in (1, 16, 40, 80, CHUNK) if t <= CHUNK]
+        print(f"  {mode} ({iters},{depth}) bf16 vs f32 over {CHUNK} steps: min "
+              f"{psnr[worst]:.2f} dB at step {worst + 1}; at steps "
+              + ", ".join(f"{t}: {psnr[t - 1]:.1f}" for t in marks))
+        if psnr[worst] <= PSNR_MIN:
+            raise AssertionError(f"{mode} ({iters},{depth}): bf16 drift over {CHUNK} steps, "
+                                 f"PSNR {psnr[worst]:.2f} <= {PSNR_MIN}")
     return total
 
 

@@ -1,8 +1,8 @@
-"""The configuration fields the serving step reads.
+"""The configuration fields the serving step and the with-flow eval read.
 
 A copy of the subset of ``cista_flow_tpu.configs.Config`` (same names, same
-defaults) that the cista-eiflow and cista-eraft serving paths consume; the port imports
-nothing of the JAX package.
+defaults) that the cista-eiflow, cista-eraft and cista-idnet serving paths
+and ``evaluate.py`` consume; the port imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -24,6 +24,19 @@ class Config:
     path_to_test_model: str | None = None
     eraft_tchunk: int = 0            # cista-eraft window: time steps per flow call (0 = all)
     seed: int = 1234
+
+    # testing (ref: utils/configs.py; cista_flow_tpu/configs.py)
+    path_to_test_data: str | None = None
+    test_data_mode: str = "real"
+    test_data_name: str | None = None
+    test_img_num: int = 50
+    is_forward_flow: bool = False
+    time_unit: str = "s"
+    dataset: str = "SIM"
+
+    # output
+    output_folder: str = "test_images"
+    is_write_image: bool = True
 
     def default_flow_iters(self) -> int:
         if self.flow_iters is not None:

@@ -1,11 +1,12 @@
-"""The cista-eiflow and cista-eraft composite steps (NCHW).
+"""The cista-eiflow, cista-eraft and cista-idnet composite steps (NCHW).
 
 Counterpart of cista_flow_tpu/models/composite.py (ref:
 e2v/e2v_model.py:138-308): estimate flow (DCEIFlow from the events and the
-previous reconstruction, or E-RAFT from two consecutive voxels), warp the
-previous frame and the recurrent sparse code along it (kernel K2), then
-reconstruct with CISTA-LSTC. For cista-eraft there is also the
-time-parallel window, the twin of ``apply_sequence_eraft``.
+previous reconstruction, E-RAFT from two consecutive voxels, or IDNet from
+the voxel and the previous step's predicted flow), warp the previous frame
+and the recurrent sparse code along it (kernel K2), then reconstruct with
+CISTA-LSTC. For cista-eraft there is also the time-parallel window, the
+twin of ``apply_sequence_eraft``.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from .cista_lstc import CistaLSTC, CistaState
 from .cista_lstc import zero_state as _cista_zero_state
 from .dceiflow import DCEIFlow
 from .eraft import ERAFT
+from .idnet import IDNet
 
 
 class _Composite(nn.Module):
@@ -153,7 +155,32 @@ class CistaERAFT(_Composite):
         return torch.stack(recs), flows, state
 
 
-MODELS = {"cista-eiflow": CistaEIFlow, "cista-eraft": CistaERAFT}
+class CistaIDNet(_Composite):
+    """cista-idnet (ref: e2v/e2v_model.py IDCistaNet): the flow comes from
+    the voxel alone, warm-started from the previous step's predicted flow
+    (``flow_init``, at the padded resolution); ``batch_flow['next_flow']``
+    is the next step's. The flow net keeps the reference's module names
+    ``event_flownet.fnet.*`` and ``event_flownet.update_net.*``."""
+
+    def __init__(self, cfg: Config):
+        super().__init__(cfg)
+        self.event_flownet = IDNet()
+
+    def forward(self, events, rec_img0, state: CistaState, iters=None,
+                flow_init=None, collect_preds: bool = False):
+        """One reconstruction step; ``iters`` deblur iterations (default 1).
+        Returns (rec, batch_flow, new_state)."""
+        iters = iters if iters is not None else self.cfg.default_flow_iters()
+        batch_flow = self.event_flownet(events, flow_init=flow_init, iters=iters,
+                                        collect_preds=collect_preds)
+        # the warps take an f32 flow; in bf16 the flow net's is bf16
+        rec, new_state = self.reconstruct(events, rec_img0, state,
+                                          batch_flow["flow_final"].float())
+        return rec, batch_flow, new_state
+
+
+MODELS = {"cista-eiflow": CistaEIFlow, "cista-eraft": CistaERAFT,
+          "cista-idnet": CistaIDNet}
 
 
 def init(cfg: Config, device=None, seed: int | None = None) -> _Composite:

@@ -1,13 +1,15 @@
-"""RAFT BasicEncoder and its residual blocks (NCHW ``nn.Module``s).
+"""RAFT BasicEncoder, IDNet's LiteEncoder and their residual blocks (NCHW
+``nn.Module``s).
 
-Counterpart of cista_flow_tpu/nn/encoders.py ``residual_block`` and
-``basic_encoder`` (ref: DCEIFlow/core/backbone/raft_encoder.py:125-203),
-with instance norm (kernel K4 on the card) or eval-mode batch norm. Convs
-are zero-padded; the square 64- and 128-channel ones are kernel K5 on the
-card. Module names follow the reference, so its state dicts load with
-``strict=True``. An encoder's ``norm_route`` selects how its instance norms
-run: "fused" (K4, the default) or "stats" (K4s, then a plain elementwise
-normalise), the two routes of the JAX package's ``conv.instance_norm``.
+Counterpart of cista_flow_tpu/nn/encoders.py ``residual_block``,
+``basic_encoder`` (ref: DCEIFlow/core/backbone/raft_encoder.py:125-203) and
+``lite_encoder`` (ref: idn/extractor.py:63-104), with instance norm (kernel
+K4 on the card), eval-mode batch norm or no norm. Convs are zero-padded;
+the square 64- and 128-channel ones are kernel K5 on the card. Module names
+follow the reference, so its state dicts load with ``strict=True``. An
+encoder's ``norm_route`` selects how its instance norms run: "fused" (K4,
+the default) or "stats" (K4s, then a plain elementwise normalise), the two
+routes of the JAX package's ``conv.instance_norm``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ class _Normed(nn.Module):
     def norm(self, x, bn: nn.BatchNorm2d | None, relu: bool):
         if self.norm_fn == "instance":
             return NORM_ROUTES[self._norm_route](x, relu=relu)
-        y = batch_norm(x, bn)
+        y = x if self.norm_fn == "none" else batch_norm(x, bn)
         return torch.relu(y) if relu else y
 
 
@@ -100,3 +102,23 @@ class BasicEncoder(_Normed):
         y = self.norm(y, self.norm1, relu=True)
         y = self.layer3(self.layer2(self.layer1(y)))
         return conv2d(y, self.conv2.weight, self.conv2.bias)
+
+
+class LiteEncoder(nn.Module):
+    """IDNet's LiteEncoder with norm 'none' at stride 2 (ref:
+    idn/extractor.py:63-104): a 7x7 stride-2 head + relu, then two stages
+    of residual blocks, each stage stride 2 (dim -> dim -> 2*dim): 1/8 of
+    the input resolution. Its 64->64 stride-1 convs are kernel K5."""
+
+    def __init__(self, n_first_channels=2, output_dim=32):
+        super().__init__()
+        self.conv1 = nn.Conv2d(n_first_channels, output_dim, 7, stride=2, padding=3)
+        dims = [(output_dim, output_dim, 2), (output_dim, 2 * output_dim, 2)]
+        for i, (cin, cout, stride) in enumerate(dims, start=1):
+            setattr(self, f"layer{i}", nn.Sequential(
+                ResidualBlock(cin, cout, "none", stride),
+                ResidualBlock(cout, cout, "none", 1)))
+
+    def forward(self, x):
+        y = torch.relu(conv2d(x, self.conv1.weight, self.conv1.bias, 2, 3))
+        return self.layer2(self.layer1(y))

@@ -1,11 +1,15 @@
-"""RAFT update blocks: motion encoders, SepConvGRU, flow and mask heads.
+"""RAFT update blocks: motion encoders, SepConvGRU, ConvGRU, flow and mask
+heads.
 
 Counterpart of cista_flow_tpu/nn/gru.py ``flow_head``, ``sep_conv_gru``,
 ``basic_motion_encoder_event``, ``precompute_update_ema`` and
 ``basic_update_block_event`` (DCEIFlow, ref: DCEIFlow/core/decoder/
-with_event_updater.py), and ``basic_motion_encoder``, ``mask_head`` and
-``basic_update_block`` (E-RAFT, ref: ERAFT/update.py). Zero-padded convs,
-NCHW, reference module names.
+with_event_updater.py), ``basic_motion_encoder``, ``mask_head`` and
+``basic_update_block`` (E-RAFT, ref: ERAFT/update.py), and ``conv_gru`` and
+the heads of ``lite_update_block`` (IDNet, ref: idn/update.py). Zero-padded
+convs, NCHW, reference module names. The JAX package's concatenated z/r
+gate conv and ``fused_head_stage1`` put several convs on one input into one
+for the TPU's lanes; here each stays its own conv.
 """
 from __future__ import annotations
 
@@ -48,6 +52,22 @@ class SepConvGRU(nn.Module):
                                  torch.cat([r * h, x], 1), pad))
             h = (1 - z) * h + z * q
         return h
+
+
+class ConvGRU(nn.Module):
+    """3x3 ConvGRU (ref: ERAFT/update.py ConvGRU, idn/update.py)."""
+
+    def __init__(self, hidden_dim=96, input_dim=64):
+        super().__init__()
+        for g in "zrq":
+            setattr(self, f"conv{g}", nn.Conv2d(hidden_dim + input_dim, hidden_dim, 3))
+
+    def forward(self, h, x):
+        hx = torch.cat([h, x], 1)
+        z = torch.sigmoid(_conv(self.convz, hx, 1))
+        r = torch.sigmoid(_conv(self.convr, hx, 1))
+        q = torch.tanh(_conv(self.convq, torch.cat([r * h, x], 1), 1))
+        return (1 - z) * h + z * q
 
 
 class BasicMotionEncoderEvent(nn.Module):
@@ -155,3 +175,25 @@ class BasicUpdateBlock(nn.Module):
         motion = self.encoder(flow, cor, corr_projected)
         net = self.gru(net, torch.cat([inp, motion], 1))
         return net, 0.25 * self.mask(net), self.flow_head(net)
+
+
+class LiteUpdateBlock(nn.Module):
+    """IDNet's LiteUpdateBlock with the next-step outputs (ref:
+    idn/update.py:47-64, ``num_outputs=2``): a ConvGRU, a flow head with
+    its convex-upsampling mask head, and a second pair for the next step's
+    flow. The mask logits are not scaled."""
+
+    def __init__(self, hidden_dim=96, input_dim=64, downsample=8):
+        super().__init__()
+        mdim = downsample * downsample * 9
+        self.gru = ConvGRU(hidden_dim, input_dim)
+        self.flow_head = FlowHead(hidden_dim, hidden_dim)
+        self.mask = MaskHead(hidden_dim, mdim)
+        self.flow_head2 = FlowHead(hidden_dim, hidden_dim)
+        self.mask2 = MaskHead(hidden_dim, mdim)
+
+    def heads(self, net):
+        """(delta flow, mask logits) and the next step's pair, at 1/8
+        resolution."""
+        return ((self.flow_head(net), self.mask(net)),
+                (self.flow_head2(net), self.mask2(net)))

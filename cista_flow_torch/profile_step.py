@@ -4,6 +4,8 @@
         --weights gate/flagship_ft1_f16.npz [--batch 8] [--steps 8] [--dtype bfloat16]
     python -m cista_flow_torch.profile_step --model cista-eraft --iters 12 --depth 5 \\
         --weights gate/eraft_sim40_f16.npz
+    python -m cista_flow_torch.profile_step --model cista-idnet --iters 1 --depth 2 \\
+        --weights gate/idnet_ft2_f16.npz
 
 Runs ``Reconstructor.run_window`` at 180x240 on seeded voxels, after one
 warm-up window, and prints:
@@ -32,16 +34,21 @@ import numpy as np
 import torch
 
 from .config import Config
-from .models import dceiflow, eraft
+from .models import dceiflow, eraft, idnet
 from .runner import Reconstructor
 
 MODULES = {"cista-eiflow": ("event_flownet.enet", "event_flownet.fnet", "event_flownet.cnet",
                             "event_flownet.fusion", "event_flownet.update_block",
                             "event_flownet", "cista_net"),
            "cista-eraft": ("event_flownet.fnet", "event_flownet.cnet",
-                           "event_flownet.update_block", "event_flownet", "cista_net")}
+                           "event_flownet.update_block", "event_flownet", "cista_net"),
+           "cista-idnet": ("event_flownet.fnet", "event_flownet.update_net.gru",
+                           "event_flownet.update_net.flow_head", "event_flownet.update_net.mask",
+                           "event_flownet.update_net.flow_head2",
+                           "event_flownet.update_net.mask2", "event_flownet", "cista_net")}
 DEFAULT_WEIGHTS = {"cista-eiflow": "gate/flagship_ft1_f16.npz",
-                   "cista-eraft": "gate/eraft_ft1_f16.npz"}
+                   "cista-eraft": "gate/eraft_ft1_f16.npz",
+                   "cista-idnet": "gate/idnet_ft2_f16.npz"}
 
 
 class StageTimer:
@@ -126,8 +133,11 @@ def main(argv=None):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / args.steps
 
-    flow_mod = eraft if args.model == "cista-eraft" else dceiflow
-    functions = [("pyramid", flow_mod.CORR, "build_corr_pyramid")]
+    if args.model == "cista-idnet":
+        functions = [("deblur", idnet, "deblur")]
+    else:
+        flow_mod = eraft if args.model == "cista-eraft" else dceiflow
+        functions = [("pyramid", flow_mod.CORR, "build_corr_pyramid")]
     if args.model == "cista-eraft":
         functions.append(("upsample", eraft, "convex_upsample"))
     timer = StageTimer(rec.model, MODULES[args.model], functions)
@@ -152,7 +162,15 @@ def main(argv=None):
     busy = sum(e.device_time_total for e in kern) / 1e3
 
     net = "event_flownet."
-    if args.model == "cista-eraft":
+    if args.model == "cista-idnet":
+        gru_heads = sum(st[net + "update_net." + n]
+                        for n in ("gru", "flow_head", "mask", "flow_head2", "mask2"))
+        rows = [("deblur", st["deblur"]), ("lite encoder", st[net + "fnet"]),
+                ("GRU + heads", gru_heads),
+                ("flow net, other", st["event_flownet"] - st["deblur"] - st[net + "fnet"]
+                 - gru_heads),
+                ("warps", st["window"] - st["event_flownet"] - st["cista_net"])]
+    elif args.model == "cista-eraft":
         # fnet and cnet run outside the flow call in the time-parallel window
         rows = [("fnet", st[net + "fnet"]), ("cnet", st[net + "cnet"]),
                 ("pyramid", st["pyramid"]),

@@ -1,20 +1,26 @@
-"""Streaming reconstructor for the cista-eiflow and cista-eraft serving steps.
+"""Streaming reconstructor for the cista-eiflow, cista-eraft and
+cista-idnet serving steps.
 
 Counterpart of cista_flow_tpu/runner.py ``Reconstructor`` (ref:
 test_with_flow.py:24-88): build the composite, load
 ``cfg.path_to_test_model`` (reference key layout), then step it in a closed
 loop. ``step_window`` runs a whole window on the device and copies to the
-host once at the end: a Python loop over the steps for cista-eiflow, the
-time-parallel window (all flows in one call, then the recurrence) for
-cista-eraft, whose flow needs the previous voxel and no reconstruction.
+host once at the end: a Python loop over the steps for cista-eiflow and
+cista-idnet, the time-parallel window (all flows in one call, then the
+recurrence) for cista-eraft, whose flow needs the previous voxel and no
+reconstruction. In f32 the steps run with cuDNN's TF32 off
+(``device.cudnn_fp32``), and the caller's flags are left as they were.
 """
 from __future__ import annotations
+
+import contextlib
+import os
 
 import numpy as np
 import torch
 
 from . import weights
-from .device import DTYPES, resolve_device
+from .device import DTYPES, cudnn_fp32, resolve_device
 from .models import composite
 
 
@@ -32,33 +38,50 @@ class Reconstructor:
             self.model.load_reference_state(
                 weights.load_state_dict(cfg.path_to_test_model))
         self.model.to(self.device, self.dtype)
+        self.model_name = (os.path.splitext(os.path.basename(cfg.path_to_test_model))[0]
+                           if cfg.path_to_test_model else
+                           f"{cfg.model_mode}_b{cfg.num_bins}_d{cfg.depth}_c{cfg.base_channels}")
         self.iters = cfg.default_flow_iters()
-        self.eraft = cfg.model_mode == "cista-eraft"
+        self.mode = cfg.model_mode
         self.reset()
 
     def reset(self):
-        """New sequence: zero state, zero previous frame and, for
-        cista-eraft, a zero previous voxel (``extra``)."""
+        """New sequence: zero state, zero previous frame and zero ``extra``:
+        the previous voxel for cista-eraft, the chained next-step flow at
+        the padded resolution (a multiple of 32) for cista-idnet."""
         h, w = self.image_dim
-        self.state = composite.zero_state(self.batch, self.cfgs, self.dtype,
-                                          self.device)
-        self.prev_image = torch.zeros((self.batch, 1, h, w), dtype=self.dtype,
-                                      device=self.device)
-        self.extra = torch.zeros((self.batch, self.cfgs.num_bins, h, w),
-                                 dtype=self.dtype, device=self.device) if self.eraft else None
+        b, dt, dev = self.batch, self.dtype, self.device
+        self.state = composite.zero_state(b, self.cfgs, dt, dev)
+        self.prev_image = torch.zeros((b, 1, h, w), dtype=dt, device=dev)
+        self.extra = None
+        if self.mode == "cista-eraft":
+            self.extra = torch.zeros((b, self.cfgs.num_bins, h, w), dtype=dt, device=dev)
+        elif self.mode == "cista-idnet":
+            self.extra = torch.zeros((b, 2, (h + 31) // 32 * 32, (w + 31) // 32 * 32),
+                                     dtype=dt, device=dev)
+
+    def _precision(self):
+        """f32: cuDNN without TF32 for the call; bf16: the caller's flags."""
+        return cudnn_fp32() if self.dtype == torch.float32 else contextlib.nullcontext()
 
     @torch.no_grad()
     def run_step(self, events: torch.Tensor):
         """One step on the device: events (B, bins, H, W) in the compute
         dtype -> (rec (B, 1, H, W), flow (B, 2, H, W)); carries the state,
-        the frame and the previous voxel."""
-        if self.eraft:
-            rec, batch_flow, self.state = self.model(
-                events, self.prev_image, self.state, self.extra, iters=self.iters)
-            self.extra = events
-        else:
-            rec, batch_flow, self.state = self.model(
-                events, self.prev_image, self.state, iters=self.iters)
+        the frame and ``extra``."""
+        with self._precision():
+            if self.mode == "cista-eraft":
+                rec, batch_flow, self.state = self.model(
+                    events, self.prev_image, self.state, self.extra, iters=self.iters)
+                self.extra = events
+            elif self.mode == "cista-idnet":
+                rec, batch_flow, self.state = self.model(
+                    events, self.prev_image, self.state, iters=self.iters,
+                    flow_init=self.extra)
+                self.extra = batch_flow["next_flow"]
+            else:
+                rec, batch_flow, self.state = self.model(
+                    events, self.prev_image, self.state, iters=self.iters)
         self.prev_image = rec
         return rec, batch_flow["flow_final"]
 
@@ -66,12 +89,13 @@ class Reconstructor:
     def run_window(self, events: torch.Tensor):
         """events: (T, B, bins, H, W) on the device in the compute dtype.
         Returns recs (T, B, 1, H, W) and flows (T, B, 2, H, W) on the device,
-        and carries the state, the last frame and (cista-eraft) the last
-        voxel to the next call."""
-        if self.eraft:
-            recs, flows, self.state = self.model.forward_window(
-                torch.cat([self.extra[None], events]), self.prev_image,
-                self.state, iters=self.iters)
+        and carries the state, the last frame and ``extra`` to the next
+        call."""
+        if self.mode == "cista-eraft":
+            with self._precision():
+                recs, flows, self.state = self.model.forward_window(
+                    torch.cat([self.extra[None], events]), self.prev_image,
+                    self.state, iters=self.iters)
             self.prev_image, self.extra = recs[-1], events[-1]
             return recs, flows
         out = [self.run_step(ev) for ev in events]
@@ -114,3 +138,11 @@ class Reconstructor:
         if return_all:
             return recs, flows
         return recs[-1], flows[-1]
+
+
+def discover_sequences(path_to_test_data: str) -> list[str]:
+    """Sorted sequence sub-folders (ref: test_with_flow.py:39-43)."""
+    out = [os.path.join(path_to_test_data, d)
+           for d in os.listdir(path_to_test_data)
+           if os.path.isdir(os.path.join(path_to_test_data, d))]
+    return sorted(out)

@@ -97,12 +97,39 @@ def _encoder(out, prefix, p, s, norm_fn):
     _conv(out, prefix + ".conv2", p["conv2"])
 
 
+def _lite_encoder(out, prefix, p):
+    """IDNet's LiteEncoder (norm 'none': convs only)."""
+    _conv(out, prefix + ".conv1", p["conv1"])
+    for i in (1, 2):
+        for j, suf in ((0, "a"), (1, "b")):
+            bp, pre = p[f"layer{i}{suf}"], f"{prefix}.layer{i}.{j}"
+            _conv(out, pre + ".conv1", bp["conv1"])
+            _conv(out, pre + ".conv2", bp["conv2"])
+            if "down" in bp:
+                _conv(out, pre + ".downsample.0", bp["down"])
+
+
+def _idnet(out, pre, f):
+    """IDNet's tree (cista_flow_tpu/ckpt/torch_import.py idnet_params,
+    backwards): ``fnet.*`` and ``update_net.*``."""
+    _lite_encoder(out, pre + "fnet", f["fnet"])
+    u = f["update"]
+    for name in ("convz", "convr", "convq"):
+        _conv(out, f"{pre}update_net.gru.{name}", u["gru"][name])
+    for head in ("flow_head", "flow_head2"):
+        for name in ("conv1", "conv2"):
+            _conv(out, f"{pre}update_net.{head}.{name}", u[head][name])
+    for head in ("mask", "mask2"):
+        _conv(out, f"{pre}update_net.{head}.0", u[head]["conv1"])
+        _conv(out, f"{pre}update_net.{head}.2", u[head]["conv2"])
+
+
 def from_jax(params_np: dict, model_state_np: dict) -> dict:
-    """cista-eiflow or cista-eraft ``(params, model_state)`` of
+    """cista-eiflow, cista-eraft or cista-idnet ``(params, model_state)`` of
     ``composite.init`` (leaves as numpy arrays) -> the reference key layout
     (``cista_net.*``, ``event_flownet.*``), with the ISTA block under
-    ``lista_blocks.0``. The flow tree tells the two apart: DCEIFlow has an
-    event encoder, E-RAFT a mask head."""
+    ``lista_blocks.0``. The flow tree tells them apart: IDNet has no
+    context encoder, DCEIFlow has an event encoder, E-RAFT a mask head."""
     out = {}
     c = params_np["cista"]
     pre = "cista_net."
@@ -120,6 +147,9 @@ def from_jax(params_np: dict, model_state_np: dict) -> dict:
 
     f, s = params_np["flow"], model_state_np["flow"]
     pre = "event_flownet."
+    if "cnet" not in f:
+        _idnet(out, pre, f)
+        return out
     u = f["update"]
     _encoder(out, pre + "fnet", f["fnet"], s.get("fnet", {}), "instance")
     _encoder(out, pre + "cnet", f["cnet"], s["cnet"], "batch")

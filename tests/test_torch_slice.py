@@ -91,8 +91,9 @@ def test_bf16_stays_close_to_f32():
 
 
 def test_other_modes_are_refused():
-    with pytest.raises(ValueError, match="not ported"):
-        Reconstructor(Config(image_dim=(H, W), model_mode="cista-idnet"), device="cpu")
+    for mode in ("cista-lstc", "cista-gtflow"):
+        with pytest.raises(ValueError, match="not ported"):
+            Reconstructor(Config(image_dim=(H, W), model_mode=mode), device="cpu")
 
 
 def test_frame_under_64_px_matches_jax():
