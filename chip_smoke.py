@@ -60,7 +60,25 @@ Phases (any failure raises and the exit code is non-zero):
  7. the ``cista-idnet`` path at (1, 2) and (1, 5), the checks of 4;
  8. one 160-step chunk (``bench.py``'s chunk) in bf16 against f32 at batch 1
     at eiflow (1,1) and (6,5), eraft (1,1) and (12,5) and idnet (1,2): above
-    30 dB PSNR at every step.
+    30 dB PSNR at every step;
+ 9. training (``training_path``): a simulated training set written by the
+    port (``data.sim.write_train_dataset``) into the ignored
+    ``build/train_data``; one f32 train step on the card against the same
+    step on the CPU (plain versions) in phase 2 and in phase 3's flow half
+    (``gate/flagship_ft1_f16.npz``, T = 2, batch 1): the loss, every
+    gradient leaf, and a nonzero gradient on the card wherever the CPU has
+    one; K1, K3 and K5 against their plain versions after a real
+    ``optimizer.step()`` on weights whose packed copies were cached before
+    it; then ``train.Trainer`` at full width from
+    ``gate/flagship_sim40_f16.npz`` ((6,5)), T = 10, batch 4, every phase
+    and both halves of phase 3, in f32 and then bf16, with the launches of
+    every step (forward only: the gradients are autograd of the plain
+    versions), the frozen subnet bit for bit over every step, device ms per
+    step and its forward/backward split, and the peak memory; bf16 with f32
+    master parameters and a loss that falls over 3 steps on one repeated
+    batch, and the cosine of its first-step gradients with f32's; the
+    saved checkpoint served by ``Reconstructor`` over one 16-step window.
+    ``--train-only`` runs the build, the kernel checks and this phase.
 Each phase prints its time. The last lines are the ``kernels`` JSON (K1,
 K2, K4 and K4s with a row for each timed shape under ``shapes``), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -145,8 +163,8 @@ def main(argv) -> int:
         print("chip_smoke: cista_flow_torch/ not found beside this script",
               file=sys.stderr)
         return 2
-    if argv not in ([], ["--kernels-only"]):
-        print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
+    if argv not in ([], ["--kernels-only"], ["--train-only"]):
+        print("usage: chip_smoke.py [--kernels-only | --train-only]", file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
     from cista_flow_torch.device import cudnn_fp32
@@ -179,19 +197,22 @@ def main(argv) -> int:
         checks = kernel_checks(torch)
     torch.cuda.synchronize()
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
-    if argv:
+    if argv == ["--kernels-only"]:
         return 0
 
-    # ---- 4.-8. the main paths, at the process's own TF32 flags -----------
+    # ---- 4.-9. the main paths, at the process's own TF32 flags -----------
     launches = {k: 0 for k in counters}
-    for phase in (flagship_path, eraft_path, variant_windows, f32_at_default_flags,
-                  gate_replay, idnet_path, long_chunks):
+    phases = (flagship_path, eraft_path, variant_windows, f32_at_default_flags,
+              gate_replay, idnet_path, long_chunks, training_path)
+    for phase in (phases[-1:] if argv == ["--train-only"] else phases):
         t_phase = time.perf_counter()
         for key, n in phase(torch, repo, counters).items():
             launches[key] += n
         now = time.perf_counter()
         print(f"{phase.__name__}: {now - t_phase:.1f} s, done at {now - t_start:.1f} s")
     idle = [k for k, n in launches.items() if n == 0]
+    if argv == ["--train-only"]:
+        idle = [k for k in ("K1", "K2", "K3", "K4", "K5") if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")
 
@@ -1124,6 +1145,408 @@ def long_chunks(torch, repo: Path, counters: dict) -> dict:
             raise AssertionError(f"{mode} ({iters},{depth}): bf16 drift over {CHUNK} steps, "
                                  f"PSNR {psnr[worst]:.2f} <= {PSNR_MIN}")
     return total
+
+
+TRAIN_VIDEOS, TRAIN_FRAMES = 4, 11   # four 10-step sequences: one batch of 4
+TRAIN_T, TRAIN_BATCH = 10, 4
+TRAIN_POINT = (6, 5, "gate/flagship_sim40_f16.npz")
+
+
+def train_launches(loss_mode: str, iters: int, t_len: int) -> dict:
+    """Kernel launches of one cista-eiflow train step of ``t_len`` steps;
+    the backward launches none (each kernel's gradient is autograd of its
+    plain version). Per step, as serving: K1 per GRU iteration, one ISTA
+    call, fnet's norms (one call over the frame pair) and enet's, K5 for the
+    three encoders' square convs and the upsamp conv; K2 for the two warps,
+    the loss's validity mask, the consistency term's warp of the previous
+    frame (loss 'rec', from step 2) and one photometric warp per GRU
+    iteration (loss 'flow' or 'both')."""
+    k2 = sum(3 + (loss_mode == "rec" and s >= 2) + (iters if loss_mode != "rec" else 0)
+             for s in range(t_len))
+    return {"K1": iters * t_len, "K2": k2, "K3": t_len, "K4": 2 * NORMS * t_len,
+            "K5": (3 * SQUARE_CONVS + 1) * t_len}
+
+
+def train_batch(torch, repo: Path, t_len: int, batch: int, device) -> dict:
+    """The first ``batch`` sequences of ``t_len`` steps of the simulated
+    training set (written on first use), as f32 tensors on ``device``."""
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.data.sim import write_train_dataset
+    from cista_flow_torch.data.train_loader import StackedSequenceLoader, TrainSequenceDataset
+
+    data = repo / "build" / "train_data"
+    index = data / "train_e2v_estflow.txt"
+    if not index.exists():
+        write_train_dataset(str(data), TRAIN_VIDEOS, TRAIN_FRAMES, H, W, seed=0)
+    cfg = Config(image_dim=(H, W), path_to_train_data=str(data), len_sequence=t_len)
+    loader = StackedSequenceLoader(TrainSequenceDataset(str(index), cfg), batch, t_len,
+                                   shuffle=False, num_workers=0)
+    return {k: torch.from_numpy(v).to(device, torch.float32) for k, v in next(iter(loader)).items()}
+
+
+def leaf_report(name, got: dict, ref: dict, tol: float, flow_trains: bool) -> None:
+    """Every gradient leaf of ``got`` against ``ref`` at ``tol`` of the
+    leaf's largest magnitude, with two kinds of exception, each held to a
+    relative L2 error instead and printed: the tied ISTA block, whose
+    softshrink has a kink at +-lambda (lambda ~1e-3; an element whose
+    pre-activation lies within rounding of it takes the other branch on the
+    other device), at ``tol``; and where the flow net trains, its three
+    encoders at 1e-2: they read inputs that are constant over most of the
+    frame (the zero first reconstruction; event voxels, zero on most
+    pixels), whose normalisations make their weight gradients sums that
+    cancel (see tests/test_torch_train_step.py). A bias that feeds a
+    normalisation (true gradient 0) is held to 1e-5 of the step's largest
+    gradient."""
+    import re
+    pre_norm = re.compile(r"event_flownet\.(fnet|enet|cnet)\.(conv1|layer\d\.\d\."
+                          r"(conv1|conv2|downsample\.0))\.bias")
+    encoders = ("event_flownet.cnet.", "event_flownet.fnet.", "event_flownet.enet.")
+    top = max(float(r.abs().max()) for r in ref.values())
+    rows, bad = [], []
+    for k, r in ref.items():
+        g = got[k]
+        if pre_norm.match(k):
+            if float(g.abs().max()) > 1e-5 * top:
+                bad.append(k)
+            continue
+        scale = float(r.abs().max())
+        if scale == 0.0:
+            if float(g.abs().max()) != 0.0:
+                bad.append(k)
+            continue
+        ratio = float((g - r).abs().max()) / scale
+        l2 = float((g - r).norm() / r.norm())
+        if ".lista_blocks." in k:
+            limit, err = tol, l2
+        elif flow_trains and k.startswith(encoders):
+            limit, err = 1e-2, l2
+        else:
+            limit, err = tol, ratio
+        rows.append((err / limit, k, ratio, l2))
+        if err > limit:
+            bad.append(k)
+    rows.sort(reverse=True)
+    print(f"  {name}: {len(ref)} gradient leaves; the five nearest their limit "
+          "(max error / leaf max, relative L2):")
+    for frac, k, ratio, l2 in rows[:5]:
+        print(f"    {frac:6.3f} of the limit  {ratio:.3e}  {l2:.3e}  {k}")
+    if bad:
+        raise AssertionError(f"{name}: gradient leaves out of tolerance: {bad[:8]}")
+
+
+def card_against_cpu(torch, repo: Path, counters: dict) -> dict:
+    """One f32 train step on the card against the same step on the CPU (the
+    plain versions), phase 2 and phase 3's flow half, ft1 weights, T = 2,
+    batch 1: the loss to 1e-5 relative, every gradient leaf to 1e-3 of its
+    largest magnitude, and wherever the CPU has a nonzero gradient the
+    card has one (a kernel cut out of the graph leaves zeros)."""
+    from cista_flow_torch import weights
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.models import composite
+    from cista_flow_torch.parallel import train_step as TS
+
+    total = {k: 0 for k in counters}
+    cfg = Config(image_dim=(H, W), depth=1, flow_iters=1)
+    sd = weights.load_state_dict(str(repo / "gate/flagship_ft1_f16.npz"))
+    seq = train_batch(torch, repo, 2, 1, "cpu")
+    for fix, mode, tag in (("flow", "rec", "phase 2, rec trains"),
+                           ("rec", "both", "phase 3 flow half, flow trains")):
+        grads, losses = {}, {}
+        for dev in ("cpu", "cuda"):
+            model = composite.init(cfg, device="cpu")
+            model.load_reference_state(sd)
+            model.to(dev)
+            opt = TS.make_optimizer(model, 1e-4)
+            step = TS.make_train_step(cfg, opt, mode, fix, False)
+            batch = {k: v.to(dev) for k, v in seq.items()}
+            if dev == "cuda":
+                loss, got = counted(counters, lambda: step(model, batch))
+                expect_launches(f"{tag}, f32 T=2 step", got, train_launches(mode, 1, 2))
+                for key in total:
+                    total[key] += got[key]
+            else:
+                loss = step(model, batch)
+            losses[dev] = float(loss)
+            grads[dev] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                          if p.grad is not None}
+        rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        print(f"  {tag}: loss card {losses['cuda']:.7f}, cpu {losses['cpu']:.7f}, relative "
+              f"difference {rel:.3e} (tol 1e-5)")
+        if rel > 1e-5:
+            raise AssertionError(f"{tag}: loss differs by {rel}")
+        if sorted(grads["cuda"]) != sorted(grads["cpu"]):
+            raise AssertionError(f"{tag}: the card's gradient leaves are not the CPU's")
+        cut = [k for k, g in grads["cpu"].items()
+               if float(g.abs().max()) > 0 and float(grads["cuda"][k].abs().max()) == 0]
+        zero = [k for k, g in grads["cpu"].items() if float(g.abs().max()) == 0]
+        print(f"    {len(grads['cpu'])} trained leaves; zero on the card where the CPU's is "
+              f"not: {len(cut)}; zero on both: {len(zero)} {zero[:6]}")
+        if cut:
+            raise AssertionError(f"{tag}: no gradient on the card for {cut[:8]}")
+        leaf_report(tag, grads["cuda"], grads["cpu"], 1e-3, fix == "rec")
+    return total
+
+
+def kernels_after_optimizer_step(torch) -> None:
+    """K5, K3 and K1 on weights a foreach Adam updates in place, after a
+    real ``optimizer.step()``: each wrapper's packed copy of the weight was
+    made (and cached) before the step and must be remade after it. bf16
+    activations on bf16 weights (K3, K5: the packed tensor-core tile) and
+    f32 convc1 weights (K1: its packed f32 weight)."""
+    from cista_flow_torch.device import cudnn_fp32
+    from cista_flow_torch.ops import cuda_conv, cuda_corr, cuda_ista2
+    from cista_flow_torch.ops.corr import build_corr_pyramid
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def rand(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(*shape, generator=g, device=dev)).to(dtype)
+
+    c = 64
+    conv = [torch.nn.Parameter(rand(c, c, 3, 3, scale=0.05)), torch.nn.Parameter(rand(c))]
+    ista = [torch.nn.Parameter(t) for t in (
+        rand(c, 2 * c, 3, 3, scale=0.03), rand(c, scale=0.1), rand(2 * c, c, 3, 3, scale=0.03),
+        rand(2 * c, scale=0.1), rand(2 * c, scale=0.01).abs(), rand(c, 2 * c, 3, 3, scale=0.03),
+        rand(c, scale=0.1))]
+    proj = [torch.nn.Parameter(rand(256, 324, 1, 1, scale=0.05, dtype=torch.float32)),
+            torch.nn.Parameter(rand(256, scale=0.1, dtype=torch.float32))]
+    x = rand(2, c, 48, 64)
+    x1, z = rand(2, c, 48, 64), rand(2, 2 * c, 48, 64, scale=0.1)
+    fm = rand(2, 256, 8, 12, dtype=torch.float32)
+    pyr = build_corr_pyramid(fm, fm.roll(1, dims=3), 4)
+    coords = (torch.rand(2, 2, 8, 12, generator=g, device=dev) * 10.0).contiguous()
+
+    def run():
+        with torch.no_grad():
+            return (cuda_conv.conv3x3(x, *conv, "reflect", True),
+                    cuda_ista2.fused_ista_dg(tuple(ista[:5]), ista[5], ista[6], x1, z, 2),
+                    cuda_corr.lookup(pyr, coords, *proj))
+    before = run()                                     # fills the weight caches
+    opt = torch.optim.Adam(conv + ista + proj, lr=1e-2, foreach=True)
+    for p in conv + ista + proj:
+        p.grad = torch.ones_like(p)
+    opt.step()
+    k5, k3, k1 = run()
+    with torch.no_grad(), cudnn_fp32():          # the plain versions in f32
+        f32 = [p.float() for p in ista]
+        r5 = cuda_conv.conv3x3_plain(x.float(), *(p.float() for p in conv), "reflect", True)
+        r3 = cuda_ista2.fused_ista_dg_plain(tuple(f32[:5]), f32[5], f32[6], x1.float(),
+                                            z.float(), 2)
+        r1 = cuda_corr.lookup_plain(pyr, coords, *proj)
+    for name, dtype, out, ref, old, tol in (
+            ("K5", "bfloat16", k5, r5, before[0], bf16_tol(r5, 2)),
+            ("K3", "bfloat16", k3, r3, before[1], bf16_tol(r3, 8)),
+            ("K1", "float32", k1, r1, before[2], f32_tol(r1))):
+        compare(torch, f"{name} after optimizer.step()", dtype, out, ref, tol)
+        outs, olds = (out, old) if isinstance(out, tuple) else ((out,), (old,))
+        moved = max(float((a.float() - b.float()).abs().max()) for a, b in zip(outs, olds))
+        print(f"    (the step moved its output by {moved:.3e}: a stale pack would be off by that)")
+        if moved <= 2 * tol:
+            raise AssertionError(f"{name}: the optimizer step moved the output by only {moved}")
+
+
+class StepWatch:
+    """Wraps each step function a ``Trainer`` makes: every launch counter
+    set to 0 just before a step and read just after, held against
+    ``train_launches``; the frozen subnet's parameters, BN statistics and
+    Adam state compared bit for bit over the step; device ms per step from
+    CUDA events around a synchronised step."""
+
+    def __init__(self, torch, trainer, counters, tag):
+        self.torch, self.trainer, self.counters, self.tag = torch, trainer, counters, tag
+        self.total = {k: 0 for k in counters}
+        self.ms, self.losses = [], []
+        make = trainer.step_fn
+
+        def step_fn(fix, mode, gt):
+            return self.watch(make(fix, mode, gt), fix, mode)
+        trainer.step_fn = step_fn
+
+    def frozen_state(self, fix):
+        model, opt = self.trainer.model, self.trainer.optimizer
+        sub = getattr(model, {"rec": "cista_net", "flow": "event_flownet"}[fix])
+        state = [t.detach().clone() for t in list(sub.parameters()) + list(sub.buffers())]
+        adam = [{k: v.clone() for k, v in opt.state[p].items()} if p in opt.state else None
+                for p in sub.parameters()]
+        return state, adam
+
+    def watch(self, step, fix, mode):
+        torch = self.torch
+
+        def watched(model, seq):
+            before = self.frozen_state(fix)
+            for k in self.counters.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(model, seq)
+            stop.record()
+            torch.cuda.synchronize()
+            got = {key: k.launches for key, k in self.counters.items()}
+            self.ms.append(start.elapsed_time(stop))
+            self.losses.append(float(loss))
+            iters = self.trainer.cfgs.default_flow_iters()
+            expect_launches(f"{self.tag} step {len(self.ms)} (fix {fix}, loss {mode})", got,
+                            train_launches(mode, iters, seq["event_voxel"].shape[0]))
+            for key in self.total:
+                self.total[key] += got[key]
+            after = self.frozen_state(fix)
+            same = all(torch.equal(a, b) for a, b in zip(before[0], after[0])) and all(
+                (a is None and b is None) or (a is not None and b is not None and all(
+                    torch.equal(a[k], b[k]) for k in a)) for a, b in zip(before[1], after[1]))
+            if not same:
+                raise AssertionError(f"{self.tag}: the frozen subnet ({fix}) changed")
+            if not np.isfinite(self.losses[-1]):
+                raise AssertionError(f"{self.tag}: loss {self.losses[-1]}")
+            return loss
+        return watched
+
+
+def train_step_split(torch, model, cfg, seq, fix, mode):
+    """Device ms of one train step's forward (the unroll and its losses),
+    backward and optimizer step, from CUDA events, on ``model`` with a fresh
+    optimizer."""
+    from cista_flow_torch.device import DTYPES
+    from cista_flow_torch.parallel import train_step as TS
+
+    opt = TS.make_optimizer(model, 1e-4)
+    dtype = DTYPES[cfg.dtype]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    model.train()
+    TS.freeze(model, fix)
+    torch.cuda.synchronize()
+    with cudnn_fp32_scope(torch, cfg.dtype):
+        ev[0].record()
+        with TS.parameters_as(model, dtype):
+            loss = TS.unroll_loss(model, seq, cfg, mode, fix, False, dtype)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+    TS.optimizer_step(model, opt)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+
+def training_path(torch, repo: Path, counters: dict) -> dict:
+    """Phase 9: training. See the module's docstring."""
+    import os
+    import shutil
+
+    from cista_flow_torch import train
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.parallel import train_step as TS
+    from cista_flow_torch.runner import Reconstructor
+
+    total = {k: 0 for k in counters}
+    t0 = time.perf_counter()
+    train_batch(torch, repo, TRAIN_T, TRAIN_BATCH, "cpu")    # writes the set
+    print(f"training: the simulated set ({TRAIN_VIDEOS} videos x {TRAIN_FRAMES} frames, "
+          f"{H}x{W}) in {time.perf_counter() - t0:.1f} s")
+    for key, n in card_against_cpu(torch, repo, counters).items():
+        total[key] += n
+    kernels_after_optimizer_step(torch)
+
+    iters, depth, anchor = TRAIN_POINT
+    runs, grads = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        out = repo / "build" / "train_models" / dtype
+        shutil.rmtree(out, ignore_errors=True)
+        cfg = Config(image_dim=(H, W), model_mode="cista-eiflow", depth=depth, flow_iters=iters,
+                     dtype=dtype, path_to_train_data=str(repo / "build" / "train_data"),
+                     path_to_model=str(out), path_to_e2vflow=str(repo / anchor),
+                     len_sequence=TRAIN_T, batch_size=TRAIN_BATCH, flow_epoch=1, rec_epoch=1,
+                     epochs=5)
+        t1 = time.perf_counter()
+        trainer = train.Trainer(cfg, device="cuda")
+        watch = StepWatch(torch, trainer, counters, f"Trainer {dtype}")
+        torch.cuda.reset_peak_memory_stats()
+        trainer.run()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for key in total:
+            total[key] += watch.total[key]
+        if len(watch.ms) != cfg.epochs:
+            raise AssertionError(f"Trainer {dtype}: {len(watch.ms)} steps, expected {cfg.epochs}")
+        if any(p.dtype != torch.float32 for p in trainer.model.parameters()):
+            raise AssertionError(f"Trainer {dtype}: master parameters left f32")
+        print(f"  Trainer {dtype}, (6,5), T={TRAIN_T}, batch {TRAIN_BATCH}: losses "
+              + ", ".join(f"{x:.4f}" for x in watch.losses) + "; device ms per step "
+              + ", ".join(f"{x:.1f}" for x in watch.ms) + f"; peak memory {peak:.2f} GiB; "
+              f"{time.perf_counter() - t1:.1f} s")
+        runs[dtype] = (trainer, cfg, watch)
+
+    # the forward/backward split, and the first step's gradients in both
+    # dtypes from the same weights and batch (phase 3's flow half)
+    from cista_flow_torch.models import composite
+    from cista_flow_torch import weights
+    seq = train_batch(torch, repo, TRAIN_T, TRAIN_BATCH, "cuda")
+    for dtype, (trainer, cfg, _) in runs.items():
+        train_step_split(torch, trainer.model, cfg, seq, "rec", "both")   # warm-up
+        split = train_step_split(torch, trainer.model, cfg, seq, "rec", "both")
+        print(f"  {dtype} step split, device ms: forward {split[0]:.1f}, backward "
+              f"{split[1]:.1f}, optimizer {split[2]:.1f} (phase 3 flow half)")
+        model = composite.init(cfg, device="cpu")
+        model.load_reference_state(weights.load_state_dict(str(repo / anchor)))
+        model.to("cuda").train()
+        TS.freeze(model, "rec")
+        with cudnn_fp32_scope(torch, dtype):
+            with TS.parameters_as(model, TS.DTYPES[dtype]):
+                loss = TS.unroll_loss(model, seq, cfg, "both", "rec", False, TS.DTYPES[dtype])
+            loss.backward()
+        grads[dtype] = {n: p.grad.float() for n, p in model.named_parameters()
+                        if p.grad is not None}
+    a = torch.cat([g.flatten() for g in grads["float32"].values()])
+    b = torch.cat([grads["bfloat16"][k].flatten() for k in grads["float32"]])
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    by_sub = {}
+    for sub in ("event_flownet.fnet", "event_flownet.enet", "event_flownet.cnet",
+                "event_flownet.fusion", "event_flownet.update_block"):
+        ks = [k for k in grads["float32"] if k.startswith(sub)]
+        if ks:
+            by_sub[sub.split(".")[-1]] = float(torch.nn.functional.cosine_similarity(
+                torch.cat([grads["float32"][k].flatten() for k in ks]),
+                torch.cat([grads["bfloat16"][k].flatten() for k in ks]), dim=0))
+    print(f"  bf16 against f32 first-step gradients (flow net trains): cosine {cos:.5f}; "
+          + ", ".join(f"{k} {v:.5f}" for k, v in by_sub.items()))
+
+    # bf16 convergence on one repeated batch, as the JAX package's own check
+    # (tests/test_train_step.py:156-177): random weights, both subnets
+    # training, loss 'rec', lr 1e-3, T = 2
+    cfg = runs["bfloat16"][1]
+    model = composite.init(cfg, device="cuda")
+    step = TS.make_train_step(cfg, TS.make_optimizer(model, 1e-3), "rec", None, False)
+    short = {k: v[:2].contiguous() for k, v in seq.items()}
+    losses = [float(step(model, short)) for _ in range(3)]
+    print(f"  bf16, random weights, one repeated batch (T=2, batch {TRAIN_BATCH}): losses "
+          + ", ".join(f"{x:.5f}" for x in losses))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"bf16 training does not converge on one batch: {losses}")
+
+    # the last checkpoint serves
+    trainer, cfg, _ = runs["float32"]
+    saved = sorted(os.listdir(trainer.path_to_model))
+    if saved != [f"{trainer.model_name}_{e}.pth.tar" for e in (1, 2, 4)]:
+        raise AssertionError(f"checkpoints {saved}")
+    path = os.path.join(trainer.path_to_model, saved[-1])
+    rec = Reconstructor(Config(image_dim=(H, W), depth=depth, flow_iters=iters,
+                               path_to_test_model=path), device="cuda")
+    (out, flows), got = counted(counters, lambda: rec.step_window(voxels(6, STEPS),
+                                                                  return_all=True))
+    expect_launches(f"checkpoint {saved[-1]} served, {STEPS} steps", got,
+                    window_launches("cista-eiflow", iters, STEPS))
+    check_outputs(out, flows, STEPS)
+    for key in total:
+        total[key] += got[key]
+    return total
+
+
+def cudnn_fp32_scope(torch, dtype: str):
+    import contextlib
+
+    from cista_flow_torch.device import cudnn_fp32
+    return cudnn_fp32() if dtype == "float32" else contextlib.nullcontext()
 
 
 if __name__ == "__main__":

@@ -1,2 +1,2 @@
-"""Host-side data for the with-flow eval: the simulator, the PNG codec and
-the sequence reader (numpy only)."""
+"""Host-side data for the with-flow eval and for training: the simulator,
+the PNG codec, the sequence reader and the training loader (numpy only)."""

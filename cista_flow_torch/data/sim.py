@@ -1,9 +1,11 @@
-"""ESIM-style event-camera simulator and the eval sequence layout.
+"""ESIM-style event-camera simulator, the eval sequence layout and the
+training layout.
 
 A numpy copy of the JAX package's simulator (cista_flow_tpu/data/sim.py:
-the scene, ``simulate_sequence`` and ``write_eval_sequence``), the port's
-only source of gate data: a smooth random texture moves under a known
-time-varying affine motion; frames are exact bilinear samples, events are
+the scene, ``simulate_sequence``, ``write_eval_sequence`` and
+``write_train_dataset``), the port's only source of gate and training
+data: a smooth random texture moves under a known time-varying affine
+motion; frames are exact bilinear samples, events are
 emitted per pixel at log-intensity threshold crossings (the ESIM contrast
 model, Rebecq et al., CoRL'18) and the flow comes from the analytic motion,
 so frames, events and flow agree. The same seed gives the same arrays as
@@ -219,6 +221,43 @@ def write_eval_sequence(outdir: str, sim: dict):
                  t=t, x=x, y=y, p=p)
         np.savez(os.path.join(outdir, f"flow_{i:06d}.npz"),
                  flow01=sim["flow01"][i], flow10=sim["flow10"][i])
+
+
+def write_train_dataset(outroot: str, n_videos: int, n_frames: int,
+                        h: int, w: int, seed: int = 0,
+                        speed_range=None, omega_range=None, **sim_kw) -> str:
+    """Training layout: a folder per video and the index the training
+    loader reads (ref: train_data_loaders.py:15-17: ``seq_id num_events ts0
+    ts1 img0 img1 events flow`` per line; video ids from 1). Returns the
+    index path. ``speed_range``/``omega_range``: optional (lo, hi) from
+    which each video's texture speed and angular rate are drawn."""
+    mrng = np.random.default_rng(seed + 31337)
+    lines = []
+    for vid in range(n_videos):
+        vdir = os.path.join(outroot, f"v{vid:03d}")
+        os.makedirs(vdir, exist_ok=True)
+        kw = dict(sim_kw)
+        if speed_range is not None:
+            kw["speed"] = float(mrng.uniform(*speed_range))
+        if omega_range is not None:
+            kw["omega"] = float(mrng.uniform(*omega_range))
+        sim = simulate_sequence(seed + 1000 * vid + 1, n_frames, h, w, **kw)
+        for i, frame in enumerate(sim["frames"]):
+            write_png(os.path.join(vdir, f"frame_{i:04d}.png"),
+                      np.round(frame * 255).astype(np.uint8))
+        for i, (t, x, y, p) in enumerate(sim["events"]):
+            np.savez(os.path.join(vdir, f"events_{i:06d}.npz"), t=t, x=x, y=y, p=p)
+            np.savez(os.path.join(vdir, f"flow_{i:06d}.npz"),
+                     flow01=sim["flow01"][i], flow10=sim["flow10"][i])
+            ts0, ts1 = sim["timestamps"][i], sim["timestamps"][i + 1]
+            lines.append(
+                f"{vid + 1} {len(t)} {ts0:.9f} {ts1:.9f} "
+                f"v{vid:03d}/frame_{i:04d}.png v{vid:03d}/frame_{i + 1:04d}.png "
+                f"v{vid:03d}/events_{i:06d}.npz v{vid:03d}/flow_{i:06d}.npz")
+    path = os.path.join(outroot, "train_e2v_estflow.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
 
 
 def ensure_eval_data(workdir: str, h: int, w: int, eval_frames: int,

@@ -75,15 +75,34 @@ class CistaEIFlow(_Composite):
         self.event_flownet = DCEIFlow(cfg.num_bins, cfg.ds)
 
     def forward(self, events, rec_img0, state: CistaState, iters=None,
-                collect_preds: bool = False):
+                collect_preds: bool = False, batch_gt=None, fix_net_name=None,
+                event_voxel_bw=None):
         """One reconstruction step. events (B, bins, H, W), rec_img0
         (B, 1, H, W) in the compute dtype. Returns (rec, batch_flow,
-        new_state)."""
+        new_state).
+
+        Training (cista_flow_tpu/models/composite.py ``apply``, ref:
+        e2v_model.py:138-224): ``batch_gt`` may hold 'gt_img0' (the flow
+        net's first frame instead of ``rec_img0``), 'gt_img1' (its second
+        frame, for the pseudo-feature loss) and 'gt_flow' (the warps take it
+        instead of the predicted flow); ``event_voxel_bw`` runs the
+        backward direction. ``fix_net_name`` names the frozen subnet ('rec'
+        or 'flow'): with 'flow' the predicted flow reaches the warps
+        detached. The flow net's BatchNorm runs in train mode exactly when
+        this module is in train mode and the flow net is not frozen."""
+        batch_gt = batch_gt or {}
         iters = iters if iters is not None else self.cfg.default_flow_iters()
-        batch_flow = self.event_flownet(events, rec_img0, iters=iters,
-                                        collect_preds=collect_preds)
-        rec, new_state = self.reconstruct(events, rec_img0, state,
-                                          batch_flow["flow_final"])
+        self.event_flownet.train(self.training and fix_net_name != "flow")
+        batch_flow = self.event_flownet(
+            events, batch_gt.get("gt_img0", rec_img0), iters=iters,
+            collect_preds=collect_preds, image2=batch_gt.get("gt_img1"),
+            reversed_event_voxel=event_voxel_bw)
+        flow_final = batch_flow["flow_final"]
+        if fix_net_name == "flow":
+            flow_final = flow_final.detach()
+        if "gt_flow" in batch_gt:
+            flow_final = batch_gt["gt_flow"]
+        rec, new_state = self.reconstruct(events, rec_img0, state, flow_final)
         return rec, batch_flow, new_state
 
 

@@ -1,14 +1,17 @@
-"""DCEIFlow: event + single-image optical flow (NCHW), serving direction.
+"""DCEIFlow: event + single-image optical flow (NCHW).
 
 Counterpart of cista_flow_tpu/models/dceiflow.py ``_fusion``, ``_iterate``,
 ``_single_direction`` and ``apply`` (ref: DCEIFlow/DCEIFlow.py:49-300):
 image encoder (1 ch) + event encoder (bins) -> EIFusion makes a pseudo
 second-frame feature map -> all-pairs correlation pyramid -> context
 encoder -> ``iters`` GRU iterations, each with one correlation lookup
-(kernel K1, convc1 fused) -> ``upflow8``. The bidirectional training
-branch is not ported yet.
+(kernel K1, convc1 fused) -> ``upflow8``. In training the second frame is
+encoded beside the first (the pseudo-feature loss), and with reversed events
+the same weights run the backward direction too (ref: DCEIFlow.py:230-270).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
@@ -64,6 +67,7 @@ class DCEIFlow(nn.Module):
         convc1 = ub.encoder.convc1
         preds = []
         for _ in range(iters):
+            coords1 = coords1.detach()     # as RAFT: no gradient through the lookup point
             cor = cuda_corr.lookup(pyr, coords1, convc1.weight, convc1.bias)
             net, delta = ub(net, inp, cor, ema, coords1 - coords0)
             coords1 = coords1 + delta
@@ -73,17 +77,10 @@ class DCEIFlow(nn.Module):
             preds.append(upflow(coords1 - coords0, self.ds))
         return coords1, torch.stack(preds)
 
-    def forward(self, event_voxel, image1, iters: int = 6, flow_init=None,
-                collect_preds: bool = False):
-        """event_voxel (B, bins, H, W); image1 (B, 1, H, W) in [0, 1].
-        Returns {'flow_preds' (n, B, 2, Hp, Wp), 'flow_init' (B, 2, Hp/8,
-        Wp/8), 'flow_final' (B, 2, H, W)}; flows are f32."""
-        padder = ImagePadder(event_voxel.shape[2:], min_size=32)
-        im1 = padder.pad(2.0 * image1 - 1.0)
-        ev = padder.pad(event_voxel)
-        emap = self.enet(ev)
-        fmap1 = self.fnet(im1)
-
+    def _single_direction(self, emap, fmap1, im1, iters, flow_init, collect_preds):
+        """Fusion, pyramid, context encoder and the GRU iterations from one
+        frame's features: (flow at 1/8, flow_preds, pseudo second-frame
+        features)."""
         pseudo_fmap2 = self.fusion(fmap1, emap)
         pyr = CORR.build_corr_pyramid(fmap1, pseudo_fmap2, CORR_LEVELS)
         cnet = self.cnet(im1)
@@ -95,5 +92,54 @@ class DCEIFlow(nn.Module):
         coords1 = coords0 if flow_init is None else coords0 + flow_init
         coords1, flow_preds = self._iterate(net, inp, pyr, coords0, coords1,
                                             emap, iters, collect_preds)
-        return {"flow_preds": flow_preds, "flow_init": coords1 - coords0,
-                "flow_final": padder.unpad(flow_preds[-1]).contiguous()}
+        return coords1 - coords0, flow_preds, pseudo_fmap2
+
+    def forward(self, event_voxel, image1, iters: int = 6, flow_init=None,
+                collect_preds: bool = False, image2=None, reversed_event_voxel=None):
+        """event_voxel (B, bins, H, W); image1 (B, 1, H, W) in [0, 1].
+        Returns {'flow_preds' (n, B, 2, Hp, Wp), 'flow_init' (B, 2, Hp/8,
+        Wp/8), 'flow_final' (B, 2, H, W)}; flows are f32. With ``image2``
+        (training) also 'fmap2_gt' and 'fmap2_pseudo'; with ``image2`` and
+        ``reversed_event_voxel`` the backward direction's 'flow_preds_bw'
+        (every iteration), 'flow_final_bw' (kept padded, as the reference
+        does), 'fmap1_gt' and 'fmap1_pseudo'."""
+        padder = ImagePadder(event_voxel.shape[2:], min_size=32)
+        im1 = padder.pad(2.0 * image1 - 1.0)
+        ev = padder.pad(event_voxel)
+        emap = self.enet(ev)
+        if image2 is not None:
+            im2 = padder.pad(2.0 * image2.to(image1.dtype) - 1.0)   # the frames' dtype
+            fmap1, fmap2 = self.fnet(torch.cat([im1, im2])).chunk(2)
+        else:
+            fmap1 = self.fnet(im1)
+
+        flow_lowres, flow_preds, pseudo_fmap2 = self._single_direction(
+            emap, fmap1, im1, iters, flow_init, collect_preds)
+        out = {"flow_preds": flow_preds, "flow_init": flow_lowres,
+               "flow_final": padder.unpad(flow_preds[-1]).contiguous()}
+        if image2 is None:
+            return out
+        out.update(fmap2_gt=fmap2, fmap2_pseudo=pseudo_fmap2)
+        if reversed_event_voxel is not None:
+            remap = self.enet(padder.pad(reversed_event_voxel))
+            # the JAX package drops the backward call's BN statistics
+            with _running_stats_kept(self.cnet):
+                _, flow_preds_bw, pseudo_fmap1 = self._single_direction(
+                    remap, fmap2, im2, iters, flow_init, True)
+            out.update(flow_preds_bw=flow_preds_bw, flow_final_bw=flow_preds_bw[-1],
+                       fmap1_gt=fmap1, fmap1_pseudo=pseudo_fmap1)
+        return out
+
+
+@contextlib.contextmanager
+def _running_stats_kept(module: nn.Module):
+    """Restore ``module``'s BatchNorm running statistics on exit: a
+    train-mode call inside normalises by its batch but leaves no trace."""
+    saved = [(b, b.clone()) for name, b in module.named_buffers()
+             if name.endswith(("running_mean", "running_var"))]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in saved:
+                b.copy_(v)

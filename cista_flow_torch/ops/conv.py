@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_conv
+from .autograd import at_least_f32
 
 
 def routes_to_conv3x3(w_shape, stride, padding) -> bool:
@@ -44,12 +45,28 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     return torch.relu(y) if relu else y
 
 
-def batch_norm(x: torch.Tensor, bn: torch.nn.BatchNorm2d,
-               eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode BatchNorm2d from the module's running statistics."""
-    inv = torch.rsqrt(bn.running_var + eps) * bn.weight
-    return ((x - bn.running_mean[None, :, None, None])
-            * inv[None, :, None, None] + bn.bias[None, :, None, None])
+def batch_norm(x: torch.Tensor, bn: torch.nn.BatchNorm2d, eps: float = 1e-5,
+               momentum: float = 0.1) -> torch.Tensor:
+    """BatchNorm2d, in the mode of ``bn.training`` (cista_flow_tpu/ops/conv.py
+    ``batch_norm``). Train: f32 batch statistics over (B, H, W), the biased
+    variance to normalise, and ``bn``'s running statistics updated in place
+    with the unbiased one (momentum 0.1). Eval: the running statistics. The
+    statistics and the scale are cast to x's dtype, as the JAX package
+    casts them."""
+    if bn.training:
+        xf = at_least_f32(x)
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf - mean[None, :, None, None]).square().mean(dim=(0, 2, 3))
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            bn.running_mean.copy_((1 - momentum) * bn.running_mean + momentum * mean)
+            bn.running_var.copy_((1 - momentum) * bn.running_var
+                                 + momentum * (var * (n / max(n - 1, 1))))
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    inv = torch.rsqrt(var + eps) * bn.weight
+    return ((x - mean.to(x.dtype)[None, :, None, None])
+            * inv.to(x.dtype)[None, :, None, None] + bn.bias.to(x.dtype)[None, :, None, None])
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5,

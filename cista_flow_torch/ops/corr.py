@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from .autograd import at_least_f32
 from .pool import avg_pool2
 
 
@@ -46,15 +47,14 @@ def lookup_corr(pyr: CorrPyramid, coords: torch.Tensor,
     b, _, h1, w1 = coords.shape
     n = b * h1 * w1
     k = 2 * radius + 1
-    cx = coords[:, 0].reshape(n).float()
-    cy = coords[:, 1].reshape(n).float()
-    d = torch.arange(-radius, radius + 1, dtype=torch.float32,
-                     device=coords.device)
+    cx = at_least_f32(coords[:, 0].reshape(n))
+    cy = at_least_f32(coords[:, 1].reshape(n))
+    d = torch.arange(-radius, radius + 1, dtype=cx.dtype, device=coords.device)
     out = []
     for i, level in enumerate(pyr.levels):
         _, hl, wl = level.shape
         if hl * wl == 0:                     # an empty level is all outside
-            out.append(torch.zeros((n, k * k), device=coords.device))
+            out.append(torch.zeros((n, k * k), dtype=cx.dtype, device=coords.device))
             continue
         px = (cx / (2.0 ** i))[:, None] + d[None]        # (n, k) by x offset
         py = (cy / (2.0 ** i))[:, None] + d[None]        # (n, k) by y offset
@@ -62,7 +62,7 @@ def lookup_corr(pyr: CorrPyramid, coords: torch.Tensor,
         y0 = torch.floor(py)
         fx = (px - x0)[:, :, None]                       # (n, bx, 1)
         fy = (py - y0)[:, None, :]                       # (n, 1, ay)
-        flat = level.reshape(n, hl * wl).float()
+        flat = at_least_f32(level.reshape(n, hl * wl))
 
         def tap(xi, yi):
             xi = xi[:, :, None].expand(n, k, k)

@@ -10,9 +10,12 @@ function so that the TPU kernel's own contract stays checkable.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import warp as _warp
+from .autograd import apply_kernel
 from .cuda_build import DTYPE_CODES, F, I, Kernel, P, check_cuda, on_cpu, stream_ptr
 
 KERNEL = Kernel("warp.cu", {"cista_warp_reflect": [I, P, P, P, P, I, I, I, I, F, P]})
@@ -43,12 +46,19 @@ def warp_reflect(img: torch.Tensor, flow: torch.Tensor, sign: float,
     (no host sync): where it is false the result is a copy of ``img``, else
     the warp. The reference's zero-flow short-circuit passes
     ``torch.any(flow != 0)``; a warp at zero flow is not the identity under
-    this normalization, so the gate really selects."""
+    this normalization, so the gate really selects. Differentiable in
+    ``img`` and ``flow``: the gradient is autograd of ``warp_reflect_plain``."""
     if gate is not None and (gate.shape != () or gate.dtype != torch.bool):
         raise ValueError(f"warp gate must be a 0-dim bool tensor, got "
                          f"{tuple(gate.shape)} {gate.dtype}")
     if on_cpu(img):
         return warp_reflect_plain(img, flow, sign, gate)
+    return apply_kernel("K2", functools.partial(_warp_kernel, sign=sign),
+                        lambda img, flow, gate: warp_reflect_plain(img, flow, sign, gate),
+                        img, flow, gate)
+
+
+def _warp_kernel(img, flow, gate, sign):
     b, c, h, w = img.shape
     if flow.shape != (b, 2, h, w) or flow.dtype != torch.float32:
         raise ValueError(f"warp kernel needs f32 flow (B, 2, H, W), got "

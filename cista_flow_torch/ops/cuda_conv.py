@@ -10,9 +10,12 @@ cast included); otherwise the direct tile takes them OIHW in x's dtype.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from .autograd import apply_kernel
 from .conv_tile import cast_cached, packed_weights
 from .cuda_build import DTYPE_CODES, I, Kernel, P, check_cuda, on_cpu, stream_ptr
 
@@ -39,11 +42,18 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
             padding_mode: str = "zeros", relu: bool = False) -> torch.Tensor:
     """x (B, C, H, W); w (C, C, 3, 3); b (C,) or None. 'zeros' or 'reflect'
     padding of 1, resolved inside the kernel. Output in x's dtype (f32 or
-    bf16; the weights are cast to it)."""
+    bf16; the weights are cast to it). Differentiable: the gradient is
+    autograd of ``conv3x3_plain`` (``autograd.apply_kernel``)."""
     if padding_mode not in ("zeros", "reflect"):
         raise ValueError(f"unknown padding_mode {padding_mode}")
     if on_cpu(x):
         return conv3x3_plain(x, w, b, padding_mode, relu)
+    mode = dict(padding_mode=padding_mode, relu=relu)
+    return apply_kernel("K5", functools.partial(_conv3x3_kernel, **mode),
+                        functools.partial(conv3x3_plain, **mode), x, w, b)
+
+
+def _conv3x3_kernel(x, w, b, padding_mode, relu):
     if x.dim() != 4 or x.numel() == 0:
         raise ValueError(f"conv3x3 kernel needs a non-empty NCHW tensor, got {tuple(x.shape)}")
     bsz, c, h, wd = x.shape

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .autograd import apply_kernel, at_least_f32
 from .conv_tile import cast_cached
 from .corr import CorrPyramid, lookup_corr
 from .corr_tile import packed_corr_weights
@@ -33,7 +34,7 @@ def lookup_plain(pyr: CorrPyramid, coords: torch.Tensor, weight=None,
     c = lookup_corr(pyr, coords, RADIUS)
     if weight is None:
         return c
-    y = F.conv2d(c.float(), weight.to(c.dtype).float(), bias.float())
+    y = F.conv2d(at_least_f32(c), at_least_f32(weight.to(c.dtype)), at_least_f32(bias))
     return torch.relu(y).to(c.dtype)
 
 
@@ -44,9 +45,19 @@ def lookup(pyr: CorrPyramid, coords: torch.Tensor, weight=None,
     (256, 324, 1, 1) and ``bias`` (256,) returns relu(convc1(windows)),
     (B, 256, H1, W1). Output in the pyramid's dtype. A level may be empty
     (0 rows or columns: a frame under 64 px); it contributes zeros, as taps
-    outside a level do."""
+    outside a level do. Differentiable in the levels, the coords and the
+    convc1 parameters: the gradient is autograd of ``lookup_plain``."""
     if on_cpu(coords):
         return lookup_plain(pyr, coords, weight, bias)
+
+    def unpacked(fn):
+        return lambda coords, weight, bias, *levels: fn(
+            pyr._replace(levels=levels), coords, weight, bias)
+    return apply_kernel("K1", unpacked(_lookup_kernel), unpacked(lookup_plain),
+                        coords, weight, bias, *pyr.levels)
+
+
+def _lookup_kernel(pyr: CorrPyramid, coords, weight, bias):
     levels = pyr.levels
     b, two, h1, w1 = coords.shape
     n = b * h1 * w1

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .autograd import refuse_grad
 from .conv_tile import packed_weights
 from .cuda_build import DTYPE_CODES, I, Kernel, P, on_cpu, stream_ptr
 from .cuda_conv import uses_mma_tile
@@ -31,9 +32,11 @@ KERNEL = Kernel("ista_loop.cu", {"cista_ista_loop": [I, P, P, P, P, P, P, P, P, 
 def fused_ista(w, x1: torch.Tensor, z: torch.Tensor, depth: int) -> torch.Tensor:
     """w = (dw (C, 2C, 3, 3), db (C,), pw (2C, C, 3, 3), pb (2C,), lam (2C,));
     x1 (B, C, H, W); z (B, 2C, H, W). Returns z after ``depth`` iterations;
-    ``z`` is not modified."""
+    ``z`` is not modified. No backward: on the card it raises where an input
+    requires a gradient."""
     if on_cpu(x1):
         return ista_loop_plain(w, x1, z, depth)
+    refuse_grad("fused_ista (K6)", *w, x1, z)
     check_ista_args("fused_ista", w, x1, z, depth)
     dw, db, pw, pb, lam = w
     b, c, h, wd = x1.shape

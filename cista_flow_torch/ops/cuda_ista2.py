@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .autograd import apply_kernel, refuse_grad
 from .conv import conv2d
 from .conv_tile import packed_weights
 from .cuda_build import (DTYPE_CODES, I, Kernel, P, SharedKernel, check_cuda, on_cpu,
@@ -136,9 +137,11 @@ def _loop_mma(kernel, w, x1, z, depth):
 def fused_ista_v2(w, x1: torch.Tensor, z: torch.Tensor, depth: int) -> torch.Tensor:
     """K3a. w = (dw (C, 2C, 3, 3), db (C,), pw (2C, C, 3, 3), pb (2C,),
     lam (2C,)); x1 (B, C, H, W); z (B, 2C, H, W). Returns z after ``depth``
-    iterations; ``z`` is not modified."""
+    iterations; ``z`` is not modified. No backward: on the card it raises
+    where an input requires a gradient."""
     if on_cpu(x1):
         return ista_loop_plain(w, x1, z, depth)
+    refuse_grad("fused_ista_v2 (K3a)", *w, x1, z)
     check_ista_args("fused_ista_v2", w, x1, z, depth)
     with torch.cuda.device(x1.device):
         if uses_mma_tile(x1.dtype, x1.shape[1]):
@@ -151,9 +154,20 @@ def fused_ista_v2(w, x1: torch.Tensor, z: torch.Tensor, depth: int) -> torch.Ten
 
 def fused_ista_dg(w, gw, gb, x1: torch.Tensor, z: torch.Tensor, depth: int):
     """K3. ``w``, ``x1``, ``z`` as ``fused_ista_v2``; gw (C, 2C, 3, 3), gb
-    (C,). Returns (z_final, rec). ``z`` is not modified."""
+    (C,). Returns (z_final, rec). ``z`` is not modified. Differentiable in
+    every tensor (the five of ``w`` taken one by one): the gradient is
+    autograd of ``fused_ista_dg_plain``."""
     if on_cpu(x1):
         return fused_ista_dg_plain(w, gw, gb, x1, z, depth)
+
+    def unpacked(fn):
+        return lambda dw, db, pw, pb, lam, gw, gb, x1, z: fn(
+            (dw, db, pw, pb, lam), gw, gb, x1, z, depth)
+    return apply_kernel("K3", unpacked(_fused_ista_dg_kernel), unpacked(fused_ista_dg_plain),
+                        *w, gw, gb, x1, z)
+
+
+def _fused_ista_dg_kernel(w, gw, gb, x1, z, depth):
     check_ista_args("fused_ista_dg", w, x1, z, depth)
     if gw.shape != w[0].shape or gb.shape != w[1].shape:
         raise ValueError("fused_ista_dg: Dg must have D's shapes, (C, 2C, 3, 3) and (C,)")

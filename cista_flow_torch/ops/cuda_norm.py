@@ -11,6 +11,7 @@ import functools
 
 import torch
 
+from .autograd import apply_kernel, at_least_f32, refuse_grad
 from .cuda_build import (DTYPE_CODES, F, I, Kernel, LL, P, SharedKernel, check_cuda,
                          on_cpu, stream_ptr)
 
@@ -51,7 +52,7 @@ def launch_rule(hw: int, elem_size: int, aligned: bool = True):
 
 def instance_norm_stats_plain(x: torch.Tensor, eps: float = 1e-5):
     """(mean, inv_std), each (B, C) f32: two-pass f32 statistics."""
-    xf = x.float()
+    xf = at_least_f32(x)
     mean = xf.mean(dim=(2, 3))
     var = (xf - mean[:, :, None, None]).square().mean(dim=(2, 3))
     return mean, torch.rsqrt(var + eps)
@@ -61,7 +62,7 @@ def instance_norm_plain(x: torch.Tensor, eps: float = 1e-5,
                         relu: bool = False) -> torch.Tensor:
     """InstanceNorm2d (affine=False) with f32 statistics, optional relu."""
     mean, inv = instance_norm_stats_plain(x, eps)
-    y = (x.float() - mean[:, :, None, None]) * inv[:, :, None, None]
+    y = (at_least_f32(x) - mean[:, :, None, None]) * inv[:, :, None, None]
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype)
@@ -99,9 +100,15 @@ def _check(x):
 
 def instance_norm_fused(x: torch.Tensor, eps: float = 1e-5,
                         relu: bool = False) -> torch.Tensor:
-    """relu(instance_norm(x)) on NCHW x, one launch."""
+    """relu(instance_norm(x)) on NCHW x, one launch. Differentiable: the
+    gradient is autograd of ``instance_norm_plain``."""
     if on_cpu(x):
         return instance_norm_plain(x, eps, relu)
+    return apply_kernel("K4", functools.partial(_instance_norm_kernel, eps=eps, relu=relu),
+                        functools.partial(instance_norm_plain, eps=eps, relu=relu), x)
+
+
+def _instance_norm_kernel(x, eps, relu):
     _check(x)
     y = torch.empty_like(x)
     _launch(KERNEL, x, y, None, None, eps, relu)
@@ -109,9 +116,11 @@ def instance_norm_fused(x: torch.Tensor, eps: float = 1e-5,
 
 
 def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5):
-    """Per-(sample, channel) mean and inverse std, f32 (B, C) each (K4s)."""
+    """Per-(sample, channel) mean and inverse std, f32 (B, C) each (K4s).
+    No backward: on the card it raises where ``x`` requires a gradient."""
     if on_cpu(x):
         return instance_norm_stats_plain(x, eps)
+    refuse_grad("instance_norm_stats (K4s)", x)
     _check(x)
     b, c = x.shape[:2]
     mean = torch.empty((b, c), dtype=torch.float32, device=x.device)

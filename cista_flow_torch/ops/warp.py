@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .autograd import at_least_f32
+
 
 def _reflect(coords: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """Reflect coordinates into [lo, hi] (torch reflect_coordinates)."""
@@ -28,8 +30,8 @@ def sample_pixel_coords(img: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
     Returns (B, C, Hg, Wg) in img's dtype; the corner blend accumulates in
     f32."""
     b, c, h, w = img.shape
-    gx = gx.float()
-    gy = gy.float()
+    gx = at_least_f32(gx)
+    gy = at_least_f32(gy)
     if padding_mode == "reflection":
         gx = _reflect(gx, 0.0, float(w - 1))
         gy = _reflect(gy, 0.0, float(h - 1))
@@ -54,7 +56,7 @@ def sample_pixel_coords(img: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
         yc = yi.clamp(0, h - 1).long()
         lin = (yc * w + xc).reshape(b, 1, -1).expand(b, c, -1)
         g = torch.gather(flat, 2, lin).reshape(b, c, *gx.shape[1:])
-        return g.float() * wt[:, None]
+        return at_least_f32(g) * wt[:, None]
 
     out = (corner(x0, y0, wx0 * wy0) + corner(x0 + 1, y0, wx1 * wy0)
            + corner(x0, y0 + 1, wx0 * wy1) + corner(x0 + 1, y0 + 1, wx1 * wy1))
@@ -67,9 +69,9 @@ def frame_warp_coords(flow: torch.Tensor, sign: float):
     (ref: utils/flow_utils.py:113-119), mapped back to pixels as
     grid_sample(align_corners=True) does."""
     b, _, h, w = flow.shape
-    f = flow.float()
-    xx = torch.arange(w, dtype=torch.float32, device=flow.device)[None, None, :]
-    yy = torch.arange(h, dtype=torch.float32, device=flow.device)[None, :, None]
+    f = at_least_f32(flow)
+    xx = torch.arange(w, dtype=f.dtype, device=flow.device)[None, None, :]
+    yy = torch.arange(h, dtype=f.dtype, device=flow.device)[None, :, None]
     gx = xx + sign * f[:, 0]
     gy = yy + sign * f[:, 1]
     nx = 2.0 * (gx / w - 0.5)

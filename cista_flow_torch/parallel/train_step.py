@@ -1,0 +1,152 @@
+"""The BPTT train step and its optimizer (one card).
+
+Counterpart of cista_flow_tpu/parallel/train_step.py (ref: train.py:180-232):
+* per sequence the state is reset and the first previous frame is zeros;
+  each step's reconstruction feeds the next WITHOUT detach, so the gradient
+  runs through the whole unroll;
+* the loss is summed over the unroll, one optimizer step per sequence
+  batch; the temporal-consistency term is on from step 2, and only for
+  ``loss_mode == 'rec'``;
+* the phase schedule freezes one subnet: its parameters get
+  ``requires_grad_(False)``, so they, their Adam moments and step counts
+  stay as they were (torch's semantics, which the JAX package rebuilds with
+  per-subtree counts, ``_adam_per_subtree``);
+* bf16 as the JAX package does it: f32 master parameters, cast to bf16 once
+  per optimizer step for the forward and the backward of the whole unroll
+  (``parameters_as``); losses and flows stay f32, and the BatchNorm running
+  statistics stay f32 buffers. f32 runs with cuDNN's TF32
+  off (``device.cudnn_fp32``).
+
+On the card every kernel of the step runs in forward (K1-K5), and each
+kernel's gradient is autograd of its plain version (``ops/autograd.py``).
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from ..device import DTYPES, cudnn_fp32
+from ..losses.recon import flow_recon_loss
+from ..models import composite
+
+SUBNETS = {"rec": "cista_net", "flow": "event_flownet"}   # fix_net_name -> module
+
+
+def make_optimizer(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
+    """torch.optim.Adam (the reference's; ref: train.py:92-95), one step
+    count per parameter. ``foreach`` is asked for by name: the fused
+    implementation updates the parameters without bumping their version
+    counters, which the kernels' weight caches (``ops/conv_tile._cached``)
+    watch."""
+    return torch.optim.Adam(model.parameters(), lr=lr, foreach=True)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+def step_lr(base_lr: float, epoch: int, step_size: int = 10, gamma: float = 0.9) -> float:
+    """StepLR(10, 0.9) as a function of the epoch (ref: train.py:92-95)."""
+    return base_lr * (gamma ** (epoch // step_size))
+
+
+def freeze(model: torch.nn.Module, fix_net_name: str | None) -> None:
+    """``requires_grad`` on for every parameter but the frozen subnet's
+    (ref: e2v/e2v_model.py:116-133 ``fix_params``)."""
+    for p in model.parameters():
+        p.requires_grad_(True)
+    if fix_net_name is not None:
+        for p in getattr(model, SUBNETS[fix_net_name]).parameters():
+            p.requires_grad_(False)
+
+
+def optimizer_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> None:
+    """One optimizer step as the JAX package takes it: every parameter of
+    the trained subnet advances its moments and step count, a parameter
+    outside the loss with a zero gradient; the frozen subnet (no
+    ``requires_grad``, no gradient) is skipped."""
+    for p in model.parameters():
+        if p.requires_grad and p.grad is None:
+            p.grad = torch.zeros_like(p)
+    optimizer.step()
+
+
+@contextlib.contextmanager
+def parameters_as(model: torch.nn.Module, dtype: torch.dtype):
+    """Inside the block every parameter of ``model`` reads as its cast to
+    ``dtype``, made once (a tied parameter, such as the ISTA block
+    registered ``depth`` times, once for all its names); the gradients flow
+    back to the f32 masters through the casts. ``torch.func.functional_call``
+    does not restore a module registered under several names."""
+    if all(p.dtype == dtype for p in model.parameters()):
+        yield
+        return
+    casts, swapped = {}, []
+    for mod in model.modules():
+        for name, p in mod._parameters.items():
+            if p is not None:
+                if id(p) not in casts:
+                    casts[id(p)] = p.to(dtype)
+                swapped.append((mod, name, p))
+    try:
+        for mod, name, p in swapped:
+            mod._parameters[name] = casts[id(p)]
+        yield
+    finally:
+        for mod, name, p in swapped:
+            mod._parameters[name] = p
+
+
+def unroll_loss(model, seq: dict, cfg, loss_mode: str, fix_net_name, use_gt_flow: bool,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The summed loss of one (T, B, ...) sequence batch through the
+    composite, stepped in ``dtype`` (the model's parameters read in it)."""
+    events = seq["event_voxel"]
+    t_len, batch = events.shape[:2]
+    state = composite.zero_state(batch, cfg, dtype, events.device)
+    rec = torch.zeros((batch, 1, *events.shape[3:]), dtype=dtype, device=events.device)
+    total = 0.0
+    for s in range(t_len):
+        batch_gt = {"gt_img1": seq["gt_img1"][s]}
+        if use_gt_flow:
+            batch_gt["gt_flow"] = seq["gt_flow"][s]
+        bw = seq.get("event_voxel_bw")
+        out, batch_flow, state = model(
+            events[s].to(dtype), rec, state, collect_preds=True, batch_gt=batch_gt,
+            fix_net_name=fix_net_name, event_voxel_bw=None if bw is None else bw[s].to(dtype))
+        target = {k: seq[k][s] for k in ("gt_img0", "gt_img1", "gt_flow", "gt_flow_bw")
+                  if k in seq}
+        total = total + flow_recon_loss(out, rec, batch_flow, target, cfg, loss_mode,
+                                        is_loss_consis=loss_mode == "rec" and s >= 2)
+        rec = out
+    return total
+
+
+def make_train_step(cfg, optimizer: torch.optim.Optimizer, loss_mode: str,
+                    fix_net_name: str | None, use_gt_flow: bool):
+    """The train step of one phase: ``step(model, seq) -> loss`` (a 0-dim f32
+    tensor on the model's device). ``seq``: dict of (T, B, C, H, W) f32
+    tensors on that device, event_voxel, gt_img0, gt_img1, gt_flow
+    [+ event_voxel_bw, gt_flow_bw]. The model is put in train mode, its
+    frozen subnet's parameters stop requiring gradients, and the optimizer
+    takes one step."""
+    dtype = DTYPES[cfg.dtype]
+
+    def step(model: torch.nn.Module, seq: dict) -> torch.Tensor:
+        model.train()
+        freeze(model, fix_net_name)
+        optimizer.zero_grad(set_to_none=True)
+        device = next(model.parameters()).device
+        precision = (cudnn_fp32() if dtype == torch.float32 and device.type == "cuda"
+                     else contextlib.nullcontext())
+        with precision:
+            with parameters_as(model, dtype):            # one cast per optimizer step
+                loss = unroll_loss(model, seq, cfg, loss_mode, fix_net_name, use_gt_flow,
+                                   dtype)
+            loss.backward()
+        optimizer_step(model, optimizer)
+        return loss.detach()
+
+    return step

@@ -6,6 +6,10 @@
         --weights gate/eraft_sim40_f16.npz
     python -m cista_flow_torch.profile_step --model cista-idnet --iters 1 --depth 2 \\
         --weights gate/idnet_ft2_f16.npz
+    python -m cista_flow_torch.profile_step --train --iters 6 --depth 5 \\
+        --weights gate/flagship_sim40_f16.npz --batch 4 --steps 10
+
+``--train`` profiles one cista-eiflow train step instead (``profile_train``).
 
 Runs ``Reconstructor.run_window`` at 180x240 on seeded voxels, after one
 warm-up window, and prints:
@@ -111,7 +115,13 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--train", action="store_true",
+                    help="one cista-eiflow train step (--steps is its unroll length)")
     args = ap.parse_args(argv)
+    if args.train:
+        from .profile_train import run
+        return run(args.iters, args.depth, args.weights or DEFAULT_WEIGHTS["cista-eiflow"],
+                   args.batch, args.steps, args.dtype)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -5,7 +5,9 @@ committed ``gate/*_f16.npz``, or a ``.pth.tar``) into ``{key: ndarray}``,
 a JAX-free copy of cista_flow_tpu/ckpt/torch_import.load_state_dict.
 ``from_jax`` turns the JAX package's parameter tree (numpy arrays, HWIO
 convs) into the same key layout, so both packages can compute with one set
-of weights.
+of weights (it maps a gradient tree the same way). ``save_checkpoint``
+writes a model in the reference's ``{'epoch', 'state_dict'}`` ``.pth.tar``
+layout, the trainer's checkpoints.
 """
 from __future__ import annotations
 
@@ -40,6 +42,19 @@ def load_state_dict(path: str) -> dict:
         v = v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
         out[key] = v.astype(np.float32) if v.dtype == np.float16 else v
     return out
+
+
+def save_checkpoint(path: str, model, epoch: int) -> None:
+    """The reference's checkpoint, ``{'epoch': epoch, 'state_dict': ...}``
+    (ref: train.py:137-140; the JAX package's ``save_torch_checkpoint``):
+    the composite's ``state_dict`` on the CPU in f32, which lists the
+    reference's keys (the tied ISTA block under every ``lista_blocks.{i}``,
+    BatchNorm's running statistics, ``norm3`` also as ``downsample.1``)."""
+    import torch
+
+    torch.save({"epoch": epoch, "state_dict": {
+        k: v.detach().cpu().float() if v.is_floating_point() else v.detach().cpu()
+        for k, v in model.state_dict().items()}}, path)
 
 
 def tie_ista_blocks(sd: dict, depth: int) -> dict:

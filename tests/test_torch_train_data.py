@@ -1,0 +1,116 @@
+"""The port's training data against the JAX package's: the simulator's
+training layout (``write_train_dataset``) and the loader over it
+(``TrainSequenceDataset``, ``StackedSequenceLoader``), bit for bit up to the
+layout (the port is NCHW and writes PNGs with its own codec, the JAX
+package NHWC through OpenCV).
+
+The JAX loader voxelizes through its native library where that is built;
+here it runs its numpy golden, which the port copies, so the voxels must be
+equal bit for bit (tests/test_torch_data.py holds the native route at 1e-6).
+"""
+import os
+
+import numpy as np
+import pytest
+
+from cista_flow_tpu.configs import Config as JConfig
+from cista_flow_tpu.data import sim as JSIM
+from cista_flow_tpu.data import train_loader as JTL
+from cista_flow_tpu.events import voxel as JV
+from cista_flow_torch.config import Config
+from cista_flow_torch.data import sim as TSIM
+from cista_flow_torch.data import train_loader as TTL
+from cista_flow_torch.data.png import read_png
+
+H, W = 36, 48
+VIDEOS, FRAMES = 2, 6
+
+
+@pytest.fixture(scope="module")
+def datasets(tmp_path_factory):
+    root = tmp_path_factory.mktemp("train")
+    j = JSIM.write_train_dataset(str(root / "jax"), VIDEOS, FRAMES, H, W, seed=3,
+                                 speed_range=(20.0, 80.0))
+    t = TSIM.write_train_dataset(str(root / "torch"), VIDEOS, FRAMES, H, W, seed=3,
+                                 speed_range=(20.0, 80.0))
+    return j, t
+
+
+def test_write_train_dataset_matches_jax(datasets):
+    jidx, tidx = datasets
+    with open(jidx) as f, open(tidx) as g:
+        lines = f.read()
+        assert lines == g.read()
+    assert len(lines.splitlines()) == VIDEOS * (FRAMES - 1)
+    jroot, troot = os.path.dirname(jidx), os.path.dirname(tidx)
+    import cv2
+    for vid in range(VIDEOS):
+        names = sorted(os.listdir(os.path.join(jroot, f"v{vid:03d}")))
+        assert names == sorted(os.listdir(os.path.join(troot, f"v{vid:03d}")))
+        for name in names:
+            jp, tp = (os.path.join(r, f"v{vid:03d}", name) for r in (jroot, troot))
+            if name.endswith(".png"):
+                np.testing.assert_array_equal(read_png(tp), cv2.imread(jp, cv2.IMREAD_GRAYSCALE))
+                np.testing.assert_array_equal(read_png(tp), read_png(jp))
+            else:
+                with np.load(jp) as a, np.load(tp) as b:
+                    assert a.files == b.files
+                    for k in a.files:
+                        np.testing.assert_array_equal(a[k], b[k])
+
+
+def _cfgs(root, **kw):
+    kw = dict(image_dim=(H, W), path_to_train_data=root, model_mode="cista-eiflow", **kw)
+    return JConfig(**kw), Config(**kw)
+
+
+def _nchw(a):
+    """JAX's (H, W, C) step arrays (and (T, B, H, W, C) batches) to NCHW."""
+    return np.moveaxis(a, -1, -3)
+
+
+CASES = {"by_video": dict(len_sequence=3),
+         "by_event_count": dict(len_sequence=0, num_events=2500),
+         "bi_reversed": dict(len_sequence=2, is_bi=True, is_reverse_events=True),
+         "forward_flow_backward_warp": dict(len_sequence=3, is_forward_flow=True,
+                                            warp_mode="backward")}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_loader_matches_jax(datasets, monkeypatch, case):
+    monkeypatch.setattr(JV, "_USE_NATIVE", False)
+    idx = datasets[0]
+    jcfg, tcfg = _cfgs(os.path.dirname(idx), **CASES[case])
+    jds, tds = JTL.TrainSequenceDataset(idx, jcfg), TTL.TrainSequenceDataset(idx, tcfg)
+    assert tds.sequence_line_id == jds.sequence_line_id
+    assert len(tds) == len(jds) > 0
+    if case == "by_event_count":
+        assert any(len(group) > 1 for seq in tds.sequence_line_id for group in seq)
+    for i in range(len(jds)):
+        jitem, titem = jds[i], tds[i]
+        assert len(jitem) == len(titem)
+        for (jd, jt), (td, tt) in zip(jitem, titem):
+            assert sorted(jd) == sorted(td) and sorted(jt) == sorted(tt)
+            for k in jd:
+                np.testing.assert_array_equal(td[k], jd[k])
+            for k in jt:
+                np.testing.assert_array_equal(tt[k], jt[k] if jt[k].ndim == 3 else jt[k][None])
+
+    t_len = max(tcfg.len_sequence, 1)
+    jl = JTL.StackedSequenceLoader(jds, 2, t_len, shuffle=True, seed=5, num_workers=2)
+    tl = TTL.StackedSequenceLoader(tds, 2, t_len, shuffle=True, seed=5, num_workers=2)
+    assert len(tl) == len(jl)
+    jb, tb = list(jl), list(tl)
+    assert len(tb) == len(jb) > 0
+    for j, t in zip(jb, tb):
+        assert sorted(j) == sorted(t)
+        for k in j:
+            assert t[k].shape[:2] == (t_len, 2)
+            np.testing.assert_array_equal(t[k], _nchw(j[k]))
+
+
+def test_eraft_training_data_is_refused(datasets):
+    _, tcfg = _cfgs(os.path.dirname(datasets[1]), len_sequence=3)
+    tcfg.model_mode = "cista-eraft"
+    with pytest.raises(NotImplementedError, match="eraft"):
+        TTL.TrainSequenceDataset(datasets[1], tcfg)
