@@ -57,6 +57,17 @@ Phases (any failure raises and the exit code is non-zero):
     within 0.2% of gate/targets_*.json) and bf16 (each metric's deviation
     printed, psnr, ssim and epe held to the gate's absolute floors), with
     the launch counts of every row;
+ 6b. the serving CLIs (``serving_clis``), on streams written into the
+    ignored ``build/cli_data`` from the gate data: ``test_noeval`` on a .txt
+    stream under cista-eiflow (6, 5), ``test_wo_flow`` on an ECD-layout
+    .zip stream under cista-eraft (12, 5), ``test_with_flow --is_gt_flow``
+    under cista-gtflow with the flagship anchor (its flow net's keys
+    dropped), each in f32 against the same CLI on the CPU and in bf16
+    against the gate's floors, launches per window counted, frames/s and
+    the host split per window printed; test_noeval's voxels under ``--dvs
+    samsung`` at 480x640 and a ``flow_half`` window against the plain
+    path; ``ops/voxel.py`` against the numpy golden at 15,000 and 500,000
+    events;
  7. the ``cista-idnet`` path at (1, 2) and (1, 5), the checks of 4;
  8. one 160-step chunk (``bench.py``'s chunk) in bf16 against f32 at batch 1
     at eiflow (1,1) and (6,5), eraft (1,1) and (12,5) and idnet (1,2): above
@@ -203,7 +214,7 @@ def main(argv) -> int:
     # ---- 4.-9. the main paths, at the process's own TF32 flags -----------
     launches = {k: 0 for k in counters}
     phases = (flagship_path, eraft_path, variant_windows, f32_at_default_flags,
-              gate_replay, idnet_path, long_chunks, training_path)
+              gate_replay, serving_clis, idnet_path, long_chunks, training_path)
     for phase in (phases[-1:] if argv == ["--train-only"] else phases):
         t_phase = time.perf_counter()
         for key, n in phase(torch, repo, counters).items():
@@ -809,7 +820,10 @@ def window_launches(mode: str, iters: int, steps: int) -> dict:
     iteration), then per step the warps, the ISTA call and the upsamp conv.
     cista-idnet, per step: the warps, the ISTA call, K5 for the
     LiteEncoder's three 64->64 convs (one call over all bins) and the upsamp
-    conv; no correlation and no norms."""
+    conv; no correlation and no norms. cista-lstc and cista-gtflow, per
+    step: the warps, the ISTA call and the upsamp conv."""
+    if mode in ("cista-lstc", "cista-gtflow"):
+        return {"K2": 2 * steps, "K3": steps, "K5": steps}
     if mode == "cista-eiflow":
         return {"K1": iters * steps, "K2": 2 * steps, "K3": steps,
                 "K4": 2 * NORMS * steps, "K5": (3 * SQUARE_CONVS + 1) * steps}
@@ -1066,7 +1080,7 @@ def gate_replay(torch, repo: Path, counters: dict) -> dict:
             cfg = Config(image_dim=(H, W), model_mode=mode, depth=depth, flow_iters=iters,
                          dtype=dtype, path_to_test_model=str(repo / "gate" / f"{stem}.npz"),
                          path_to_test_data=eval_dir, test_data_mode="upsampled",
-                         is_write_image=False)
+                         is_write_image=False, output_folder=str(repo / "build" / "gate_out"))
             t1 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 (rows, keys, raw), got = counted(
@@ -1093,6 +1107,281 @@ def gate_replay(torch, repo: Path, counters: dict) -> dict:
                     failures.append(f"{row} bf16 past the floors {fl}: {measured}")
     if failures:
         raise AssertionError("gate replay: " + "; ".join(failures))
+    return total
+
+
+CLI_FRAMES = 10          # frames of a sequence the serving CLIs read (test_img_num)
+CLI_EVENTS = 15000       # the CLIs' --num_events (the reference's default)
+CLI_STREAM = 32          # test_noeval's windows in bf16 (4 chunks of 8); 4 in f32 and on the CPU
+SAMSUNG = (480, 640)     # test_noeval's frame size under --dvs samsung
+
+
+def write_event_text(path: Path, events: np.ndarray, header=None) -> None:
+    """Events (N, 4) as the reference's text stream (``t x y p``, ``%.9f``
+    timestamps), after an optional ``W H`` header line; zipped (one member,
+    ``events.txt``) when ``path`` ends in ``.zip``."""
+    import zipfile
+    txt = path.with_suffix(".txt")
+    with open(txt, "w") as f:
+        if header is not None:
+            f.write(f"{header[1]} {header[0]}\n")
+        np.savetxt(f, events, fmt="%.9f %d %d %d")
+    if path.suffix == ".zip":
+        with zipfile.ZipFile(path, "w") as z:
+            z.write(txt, "events.txt")
+        txt.unlink()
+
+
+def cli_data(repo: Path) -> dict:
+    """The CLIs' inputs in the ignored build/cli_data, from the gate data
+    (phase 6 wrote it): the with-flow layout itself; sim_00's first
+    CLI_FRAMES frames with their events as one headerless events.zip
+    (ECD's layout); a .txt stream of sim_00's events with its header; a
+    480x640 stream from the simulator for --dvs samsung; and all of
+    sim_00's events (``events``, 577k) for the device voxelization."""
+    import shutil
+
+    from cista_flow_torch.data.sim import ensure_eval_data, simulate_sequence
+    gate = Path(ensure_eval_data(str(repo / "build" / "gate_data"), H, W,
+                                 eval_frames=GATE_FRAMES, seed=0))
+    root = repo / "build" / "cli_data"
+    shutil.rmtree(root, ignore_errors=True)
+    seq, ecd = gate / "sim_00", root / "ecd" / "sim_00"
+    ecd.mkdir(parents=True)
+    windows = []
+    for i in range(GATE_FRAMES - 1):
+        with np.load(seq / f"events_{i:06d}.npz") as z:
+            windows.append(np.stack([z["t"], z["x"], z["y"], z["p"]], 1))
+    for i in range(CLI_FRAMES):
+        shutil.copy(seq / f"frame_{i:04d}.png", ecd)
+    shutil.copy(seq / "timestamps.txt", ecd)
+    events = np.concatenate(windows)
+    write_event_text(ecd / "events.zip", np.concatenate(windows[:CLI_FRAMES - 1]))
+    write_event_text(root / "stream.txt", events[:CLI_STREAM * CLI_EVENTS], header=(H, W))
+    big = simulate_sequence(5, 2, *SAMSUNG)["events"][0]
+    write_event_text(root / "samsung.txt", np.stack(big, 1)[:4 * CLI_EVENTS], header=SAMSUNG)
+    return {"gate": gate, "ecd": root / "ecd", "stream": root / "stream.txt",
+            "samsung": root / "samsung.txt", "events": events, "out": root / "out"}
+
+
+def recorded_windows():
+    """A context in which every ``Reconstructor.step_window`` call appends
+    its window length to the list it yields."""
+    import contextlib
+
+    from cista_flow_torch.runner import Reconstructor
+
+    @contextlib.contextmanager
+    def ctx():
+        lengths, step_window = [], Reconstructor.step_window
+
+        def recorded(self, voxels, *args, **kwargs):
+            lengths.append(len(voxels))
+            return step_window(self, voxels, *args, **kwargs)
+        Reconstructor.step_window = recorded
+        try:
+            yield lengths
+        finally:
+            Reconstructor.step_window = step_window
+    return ctx()
+
+
+def read_pngs(base: Path) -> dict:
+    """The reconstructions a CLI wrote under ``base``, decoded."""
+    from cista_flow_torch.data.png import read_png
+    return {str(p.relative_to(base)): read_png(str(p)) for p in sorted(base.rglob("frame_*.png"))}
+
+
+def serving_clis(torch, repo: Path, counters: dict) -> dict:
+    """Phase 6b: the three serving CLIs of the port at 180x240 on the gate
+    anchors, as a user runs them (``evaluate_sequences``/``run`` of
+    ``cista_flow_torch.test_*``, PNG writing on): ``test_noeval`` on a .txt
+    stream under cista-eiflow (6,5), ``test_wo_flow`` on an ECD-layout
+    .zip stream under cista-eraft (12,5) ('real' windows of 15000 events),
+    ``test_with_flow --is_gt_flow`` under cista-gtflow with the flagship
+    anchor's reconstructor (its flow net's keys dropped). Each in f32 on
+    the card against the same CLI on the CPU (the mean row within 0.2%;
+    test_noeval's written frames within one gray level) and in bf16 (the
+    gate's floors; test_noeval: above 30 dB PSNR against f32), with the
+    launches of every window as ``window_launches`` reckons them; frames/s
+    (host clock, the second bf16 run) and the host split per window. Then
+    the shapes no earlier phase holds, against the plain path on the CPU
+    at phase 4's 1e-3: test_noeval's voxels under --dvs samsung at 480x640
+    (K1 at n = 60*80, K5 on 640-px rows, K3 at (1, 128, 240, 320)) and one
+    flow_half window at (6,5) (the flow net at 90x120, K1 at n = 12*16);
+    and ``ops/voxel.py`` on the card against the numpy golden at 15,000
+    and 500,000 events."""
+    import contextlib
+    import io as _io
+
+    from cista_flow_torch import evaluate, test_noeval, test_with_flow, test_wo_flow
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.data.readers import FixedSizeEventReader
+    from cista_flow_torch.runner import Reconstructor
+    from cista_flow_torch.timing import HostSplit
+
+    t0 = time.perf_counter()
+    data = cli_data(repo)
+    print(f"serving CLIs: data in {time.perf_counter() - t0:.1f} s (build/cli_data)")
+    cases = (
+        ("test_noeval", "cista-eiflow", 6, 5, "flagship_sim40_f16",
+         dict(path_to_test_data=str(data["stream"]), num_events=CLI_EVENTS, test_img_num=3)),
+        ("test_wo_flow", "cista-eraft", 12, 5, "eraft_sim40_f16",
+         dict(path_to_test_data=str(data["ecd"]), num_events=CLI_EVENTS, test_data_mode="real",
+              test_img_num=CLI_FRAMES, is_write_event=True, is_write_flow=True)),
+        ("test_with_flow", "cista-gtflow", None, 5, "flagship_sim40_f16",
+         dict(path_to_test_data=str(data["gate"]), test_data_mode="upsampled", is_gt_flow=True,
+              test_img_num=CLI_FRAMES, is_write_flow=True)))
+    total = {k: 0 for k in counters}
+    failures = []
+    for cli, mode, iters, depth, stem, flags in cases:
+        module = {"test_noeval": test_noeval, "test_wo_flow": test_wo_flow,
+                  "test_with_flow": test_with_flow}[cli]
+        tag = f"{cli} {mode} ({iters},{depth})"
+        out = {}
+        # test_noeval's bf16 runs read the whole stream: CLI_STREAM windows
+        longer = {"test_img_num": CLI_STREAM - 1} if cli == "test_noeval" else {}
+        for run, dtype, device in (("f32", "float32", "cuda"), ("cpu", "float32", "cpu"),
+                                   ("bf16", "bfloat16", "cuda"), ("bf16 again", "bfloat16", "cuda")):
+            folder = data["out"] / cli / run.replace(" ", "_")
+            cfg = Config(image_dim=(H, W), model_mode=mode, depth=depth, flow_iters=iters,
+                         dtype=dtype, path_to_test_model=str(repo / "gate" / f"{stem}.npz"),
+                         output_folder=str(folder),
+                         **{**flags, **(longer if dtype == "bfloat16" else {})})
+            split = HostSplit()
+            t1 = time.perf_counter()
+            with recorded_windows() as lengths, contextlib.redirect_stdout(_io.StringIO()):
+                result, got = counted(counters, lambda: (module.run if cli == "test_noeval"
+                                                         else module.evaluate_sequences)(
+                    cfg, device=device, split=split))
+            secs = time.perf_counter() - t1
+            if device == "cuda":
+                want = {}
+                for n in lengths:
+                    for k, v in window_launches(mode, cfg.default_flow_iters(), n).items():
+                        want[k] = want.get(k, 0) + v
+                expect_launches(f"{tag} {run} ({secs:.1f} s), {len(lengths)} windows of "
+                                f"{sum(lengths)} steps", got, want)
+                for key in total:
+                    total[key] += got[key]
+            if device == "cpu":
+                print(f"  {tag} on the CPU: {secs:.1f} s")
+            out[run] = (result, read_pngs(folder), split, secs, sum(lengths))
+        steps = out["bf16 again"][4]
+        split = out["bf16 again"][2]
+        loop = sum(split.seconds.values())
+        ms = split.per_window_ms()
+        print(f"  {tag}: bf16 {steps / loop:.1f} frames/s over the loop, "
+              f"{steps / out['bf16 again'][3]:.1f} with the model's load ({steps} steps); "
+              "host ms per window: " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+              + f"; largest besides the device call: "
+              f"{max((k for k in ms if k != 'device'), key=ms.get)}; on {nvidia_smi()}")
+        print(f"    f32: {out['f32'][4] / sum(out['f32'][2].seconds.values()):.1f} frames/s "
+              "over the loop")
+        if cli == "test_noeval":
+            a, b, c = out["f32"][1], out["cpu"][1], out["bf16"][1]
+            if not a or list(a) != list(b) or not set(a) <= set(c):
+                failures.append(f"{tag}: written frames differ: {list(a)} {list(b)} {list(c)}")
+                continue
+            lv = max(int(np.abs(a[k].astype(int) - b[k].astype(int)).max()) for k in a)
+            psnr = min(psnr_per_step([a[k] / 255.0 for k in a], [c[k] / 255.0 for k in a]))
+            print(f"    f32 card vs cpu: written frames within {lv} gray level(s) (tol 1); "
+                  f"bf16 vs f32 frames: min PSNR {psnr:.2f} dB (> {PSNR_MIN})")
+            if lv > 1 or psnr <= PSNR_MIN:
+                failures.append(f"{tag}: f32 {lv} levels from the cpu, bf16 {psnr:.2f} dB")
+            continue
+        rows = {run: out[run][0] for run in out}
+        keys = rows["f32"][1]
+        gpu, cpu, bf = (evaluate.mean_metrics(rows[r][0], keys) for r in ("f32", "cpu", "bf16"))
+        ok, _ = evaluate.compare(gpu, cpu, GATE_TOLERANCE)
+        dev = {k: (gpu[k] - v) / max(abs(v), 1e-3) for k, v in cpu.items()}
+        print(f"    f32 card vs cpu, mean row: max |dev| {100 * max(map(abs, dev.values())):.4f}% "
+              f"(tol {100 * GATE_TOLERANCE:.1f}%): " + ", ".join(f"{k} {v:.4f}" for k, v in gpu.items()))
+        fl = GATE_FLOORS["cista-eiflow" if mode == "cista-gtflow" else mode]
+        above = bf["psnr"] > fl["psnr"] and bf["ssim"] > fl["ssim"] and bf.get("epe", 0.0) < fl["epe"]
+        print(f"    bf16 mean row: " + ", ".join(f"{k} {v:.4f}" for k, v in bf.items())
+              + f"; floors {fl}: {'above' if above else 'BELOW'}")
+        if not ok:
+            failures.append(f"{tag}: f32 card vs cpu beyond 0.2%: {dev}")
+        if not above:
+            failures.append(f"{tag}: bf16 past the floors {fl}: {bf}")
+
+    # new shapes, against the plain path on the CPU (phase 4's 1e-3)
+    flagship = str(repo / "gate" / "flagship_sim40_f16.npz")
+    cfg = Config(image_dim=SAMSUNG, depth=5, flow_iters=6, path_to_test_model=flagship,
+                 dvs="samsung", num_events=CLI_EVENTS)
+    windows = list(FixedSizeEventReader(str(data["samsung"]), CLI_EVENTS))[:2]
+    vox = np.stack([test_noeval.voxelize(w, cfg) for w in windows])
+    flow_half = Config(image_dim=(H, W), depth=5, flow_iters=6, path_to_test_model=flagship,
+                       flow_half=True)
+    for tag, c, ev in ((f"test_noeval --dvs samsung voxels {SAMSUNG[0]}x{SAMSUNG[1]}", cfg, vox),
+                       ("flow_half window (6,5)", flow_half, voxels(7, 2))):
+        rec = Reconstructor(c, device="cuda")
+        gpu, got = counted(counters, lambda: rec.step_window(ev, return_all=True))
+        expect_launches(f"{tag}, f32, {len(ev)} steps", got,
+                        window_launches("cista-eiflow", 6, len(ev)))
+        for key in total:
+            total[key] += got[key]
+        cpu = Reconstructor(c, device="cpu").step_window(ev, return_all=True)
+        err = max(float(np.abs(a - b).max()) for a, b in zip(gpu, cpu))
+        print(f"  {tag}: f32 cuda vs cpu plain: max abs err {err:.3e} (tol 1e-3); "
+              f"max |flow| {float(np.abs(gpu[1]).max()):.2f}")
+        if err > 1e-3 or not np.isfinite(gpu[0]).all():
+            failures.append(f"{tag}: cuda differs from the plain path by {err}")
+
+    # device voxelization against the numpy golden
+    from cista_flow_torch.events import event_preprocess, events_to_voxel_grid
+    from cista_flow_torch.ops import voxel as dvox
+    for n in (15000, 500000):
+        ev = data["events"][:n]
+        if len(ev) < n:
+            raise AssertionError(f"the gate data holds {len(ev)} events, fewer than {n}")
+        cap = (n + 65535) // 65536 * 65536
+        buf = np.zeros((cap, 4))
+        buf[:n] = ev
+        t, x, y, p = (torch.from_numpy(buf[:, i]).cuda() for i in range(4))
+        x, y, p = x.long(), y.long(), p.long()
+        valid = torch.arange(cap, device="cuda") < n
+
+        def device_voxels():
+            return dvox.event_preprocess(dvox.events_to_voxel_grid(t, x, y, p, 5, H, W, valid),
+                                         filter_hot_pixel=True)
+        raw = dvox.events_to_voxel_grid(t, x, y, p, 5, H, W, valid).cpu().numpy()
+        got = device_voxels().cpu().numpy()
+        h0 = time.perf_counter()
+        ref_raw = events_to_voxel_grid(ev, 5, W, H)
+        ref = event_preprocess(ref_raw.copy(), filter_hot_pixel=True)
+        host_ms = 1e3 * (time.perf_counter() - h0)
+        # the golden adds each cell's c contributions one by one in f32: it
+        # is off the exact sum by up to (c - 1) * 2^-24 * sum|v| (recursive
+        # summation's bound); the device sums in f64 and rounds once
+        u = 2.0 ** -24
+        mag = events_to_voxel_grid(np.concatenate([ev[:, :3], np.ones((n, 1))], 1), 5, W, H)
+        c = 2 * np.bincount((ev[:, 1] + ev[:, 2] * W).astype(np.int64), minlength=H * W)
+        bound = c.reshape(H, W) * u * mag + 2 * u * np.abs(ref_raw) + 1e-30
+        raw_ratio = float((np.abs(raw - ref_raw) / bound).max())
+        rel = float((np.abs(raw - ref_raw) / np.maximum(np.abs(ref_raw), 1.0)).max())
+        norm_ref = event_preprocess(raw.copy(), filter_hot_pixel=True)
+        norm = float((np.abs(got - norm_ref) / np.maximum(np.abs(norm_ref), 1.0)).max())
+        norm_golden = float((np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)).max())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        device_voxels()
+        start.record()
+        for _ in range(20):
+            device_voxels()
+        end.record()
+        torch.cuda.synchronize()
+        print(f"  ops/voxel.py at {n} events (buffer {cap}): raw grid against the golden "
+              f"{raw_ratio:.3f} of the golden's own summation bound (tol 1; "
+              f"|err| / max(1, |golden|) {rel:.3e}); normalised against the golden's "
+              f"normalisation of the device grid {norm:.3e} (tol 1e-6; against the golden "
+              f"{norm_golden:.3e}); device {start.elapsed_time(end) / 20:.4f} ms per window "
+              f"(CUDA events, 20 calls) against the host golden's {host_ms:.2f} ms")
+        if raw_ratio > 1.0 or norm > 1e-6:
+            failures.append(f"ops/voxel.py at {n} events: {raw_ratio:.3f} of the bound, "
+                            f"normalised {norm:.3e}")
+    if failures:
+        raise AssertionError("serving CLIs: " + "; ".join(failures))
     return total
 
 

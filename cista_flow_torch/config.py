@@ -1,20 +1,31 @@
-"""The configuration fields the serving step, the with-flow eval and the
-trainer read.
+"""The configuration fields the serving step, the eval CLIs and the trainer
+read, and the reference's flag surface.
 
-A copy of the subset of ``cista_flow_tpu.configs.Config`` (same names, same
-defaults) that the cista-eiflow, cista-eraft and cista-idnet serving paths,
-``evaluate.py`` and ``train.py`` consume; the port imports nothing of the
-JAX package.
+A copy of ``cista_flow_tpu.configs.Config`` (same names, same defaults)
+without the TPU knobs; the port imports nothing of the JAX package.
+``add_args``/``from_args`` keep the reference's flag names and short forms
+(ref: utils/configs.py:4-165) and add ``--device``. The JAX package's
+TPU-only flags (``TPU_ONLY_FLAGS``) are not accepted. The dataclass's own
+``model_mode`` default is ``cista-eiflow``; the flag's, as in the reference,
+is ``cista-lstc``.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 from dataclasses import dataclass
+
+# the JAX package's mesh, Pallas-routing and orbax flags, which have no
+# meaning on the card (cista_flow_tpu/configs.py:242-262)
+TPU_ONLY_FLAGS = ("--mesh_shape", "--mesh_axes", "--serve_pallas", "--train_pallas",
+                  "--encoder_merge", "--corr_fuse_proj", "--eraft_pair_tower",
+                  "--orbax_ckpt")
 
 
 @dataclass
 class Config:
     image_dim: tuple = (180, 240)
-    model_mode: str = "cista-eiflow"
+    model_mode: str = "cista-eiflow"  # cista-eiflow | cista-eraft | cista-idnet | cista-lstc | cista-gtflow
     num_bins: int = 5
     depth: int = 5
     base_channels: int = 64
@@ -25,6 +36,7 @@ class Config:
     flow_iters: int | None = None    # override of the flow GRU iterations
     path_to_test_model: str | None = None
     eraft_tchunk: int = 0            # cista-eraft window: time steps per flow call (0 = all)
+    flow_half: bool = False          # cista-eiflow serving: the flow net on the half domain
     seed: int = 1234
 
     # training (ref: utils/configs.py; cista_flow_tpu/configs.py:48-70)
@@ -41,26 +53,133 @@ class Config:
     rec_epoch: int = 5
     lr: float = 1e-4
     batch_size: int = 1
+    is_SummaryWriter: bool = False
     load_epoch_for_train: int = 0
+    load_lr: float = 1e-4
+    train_all: bool = False
+    is_load_flow: bool = False
+    no_warp: bool = False
+    is_gt_flow: bool = False
     is_reverse_events: bool = False
     is_bi: bool = False
+    distributed: bool = False
     num_events: int = 15000
 
-    # testing (ref: utils/configs.py; cista_flow_tpu/configs.py)
+    # testing (ref: utils/configs.py; cista_flow_tpu/configs.py:72-86)
     path_to_test_data: str | None = None
+    load_epoch_for_test: int | None = None
+    reader_type: str = "image_reader"
     test_data_mode: str = "real"
     test_data_name: str | None = None
     test_img_num: int = 50
     is_forward_flow: bool = False
     time_unit: str = "s"
     dataset: str = "SIM"
+    k_shift: int = -1
+    n_event_skip: int = 0
+    dvs: str | None = None
 
     # output
     output_folder: str = "test_images"
     is_write_image: bool = True
+    is_write_event: bool = False
+    is_write_video: bool = False
+    is_write_flow: bool = False
+    is_write_emap: bool = False
+
+    # display (kept for the flag surface; nothing is shown headless)
+    display_train: bool = False
+    display_test: bool = False
+    show_events: bool = True
+    event_display_mode: str = "grayscale"
+    num_bins_to_show: int = -1
 
     def default_flow_iters(self) -> int:
         if self.flow_iters is not None:
             return self.flow_iters
         return {"cista-eiflow": 6, "cista-eraft": 12, "cista-idnet": 1}.get(
             self.model_mode, 6)
+
+
+def add_args(parser: argparse.ArgumentParser) -> None:
+    """The reference's flags (cista_flow_tpu/configs.py:160-240), the port's
+    extensions ``--dtype``, ``--flow_iters``, ``--seed``,
+    ``--eraft_tchunk``, ``--flow_half``, and ``--device`` (``cuda``, the
+    default, or ``cpu``)."""
+    a = parser.add_argument
+    a("--image_dim", nargs=2, default=[180, 240], type=int)
+    a("--path_to_model", default="models", type=str)
+    a("--path_to_test_model", type=str)
+    a("--model_name", default="", type=str)
+    a("--model_mode", default="cista-lstc", type=str)
+    a("-b", "--num_bins", default=5, type=int)
+    a("-d", "--depth", default=5, type=int)
+    a("-c", "--base_channels", default=64, type=int)
+    a("--ds", default=8, type=int)
+
+    a("--path_to_e2v", type=str)
+    a("--path_to_e2vflow", type=str)
+    a("--path_to_flownet", type=str)
+    a("--path_to_train_data", type=str)
+    a("-s", "--len_sequence", default=10, type=int)
+    a("--no_shuffle", dest="shuffle", action="store_false")
+    a("--epochs", default=1, type=int)
+    a("--flow_epoch", default=20, type=int)
+    a("--rec_epoch", default=5, type=int)
+    a("--lr", default=1e-4, type=float)
+    a("--batch_size", default=1, type=int)
+    a("--is_SummaryWriter", action="store_true")
+    a("--load_epoch_for_train", default=0, type=int)
+    a("--load_lr", default=1e-4, type=float)
+    a("--train_all", action="store_true")
+    a("--is_load_flow", action="store_true")
+    a("--is_forward_flow", action="store_true")
+    a("--no_warp", action="store_true")
+    a("--is_gt_flow", action="store_true")
+    a("--warp_mode", type=str, default="forward")
+    a("--is_reverse_events", action="store_true")
+    a("--is_bi", action="store_true")
+    a("--distributed", action="store_true")
+
+    a("--path_to_test_data", type=str)
+    a("--load_epoch_for_test", default=None, type=int)
+    a("--reader_type", default="image_reader", type=str)
+    a("--test_data_name", default=None, type=str)
+    a("--dataset", default="SIM", type=str)
+    a("--time_unit", default="s", type=str)
+    a("--test_img_num", default=50, type=int)
+    a("--num_events", default=15000, type=int)
+    a("--test_data_mode", default="real", type=str)
+    a("--k_shift", default=-1, type=int)
+    a("--n_event_skip", default=0, type=int)
+    a("--dvs", default=None, type=str)
+
+    a("-o", "--output_folder", default="test_images", type=str)
+    a("--no_write_image", dest="is_write_image", action="store_false")
+    a("--is_write_event", action="store_true")
+    a("--is_write_video", action="store_true")
+    a("--is_write_flow", action="store_true")
+    a("--is_write_emap", action="store_true")
+
+    a("--display_train", action="store_true")
+    a("--display_test", action="store_true")
+    a("--show_events", action="store_true", default=True)
+    a("--event_display_mode", default="grayscale", type=str)
+    a("--num_bins_to_show", default=-1, type=int)
+
+    a("--dtype", default="float32", choices=["float32", "bfloat16"])
+    a("--flow_iters", default=None, type=int)
+    a("--seed", default=1234, type=int)
+    a("--eraft_tchunk", default=0, type=int)
+    a("--flow_half", action="store_true")
+    a("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def from_args(args: argparse.Namespace) -> Config:
+    """The Config of a parsed namespace; keys that are not fields
+    (``--device``, a harness's own flags) are left out."""
+    fields = {f.name for f in dataclasses.fields(Config)}
+    kw = {k: v for k, v in vars(args).items() if k in fields}
+    if kw.get("image_dim") is not None:
+        kw["image_dim"] = tuple(kw["image_dim"])
+    return Config(**kw)

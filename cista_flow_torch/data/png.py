@@ -1,11 +1,13 @@
-"""8-bit grayscale PNG, read and written with ``zlib`` and numpy only.
+"""8-bit PNG, read and written with ``zlib`` and numpy only.
 
 The eval data's frames are PNGs (``frame_%04d.png``); the JAX package reads
-and writes them with OpenCV, which the port does not use. This codec takes
+and writes them with OpenCV, which the port does not use. The reader takes
 the subset those files are: bit depth 8, colour type 0 (grayscale), no
 interlace. It decodes all five row filters (encoders such as libpng pick
 one per row, Paeth included) and raises on any other kind of PNG. The
-writer stores every row with filter 0 (None).
+writer stores grayscale (colour type 0) or, for the flow and event
+pictures, RGB (colour type 2) from a BGR array as ``cv2.imwrite`` takes
+it; every row with filter 0 (None).
 """
 from __future__ import annotations
 
@@ -23,15 +25,18 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
-    """Write a (H, W) uint8 array as an 8-bit grayscale PNG."""
+    """Write a (H, W) uint8 array as an 8-bit grayscale PNG, or a (H, W, 3)
+    uint8 array in OpenCV's BGR order as an 8-bit RGB PNG."""
     img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim != 2:
-        raise ValueError(f"write_png takes a (H, W) uint8 array, got "
+    if img.dtype != np.uint8 or not (img.ndim == 2 or img.ndim == 3 and img.shape[2] == 3):
+        raise ValueError(f"write_png takes a (H, W) or (H, W, 3) uint8 array, got "
                          f"{img.shape} {img.dtype}")
-    h, w = img.shape
-    raw = np.zeros((h, w + 1), np.uint8)      # a filter-type byte (0) per row
-    raw[:, 1:] = img
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
+    h, w = img.shape[:2]
+    colour = 0 if img.ndim == 2 else 2
+    rows = img.reshape(h, -1) if colour == 0 else img[:, :, ::-1].reshape(h, 3 * w)
+    raw = np.zeros((h, rows.shape[1] + 1), np.uint8)   # a filter-type byte (0) per row
+    raw[:, 1:] = rows
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(SIGNATURE + _chunk(b"IHDR", ihdr)
                 + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))

@@ -1,7 +1,9 @@
-"""Eval metrics of the with-flow eval: reconstruction (mse, PSNR, SSIM) and
-flow (photometric loss, EPE, outlier rates)."""
+"""Eval metrics: reconstruction (mse, PSNR, SSIM), flow with GT (photometric
+loss, EPE, outlier rates) and without (FWL)."""
 from .flow import flow_evaluate, validity_mask
+from .fwl import fwl_metric, voxel_warping_flow_loss
 from .recon import psnr, recon_evaluate
 from .ssim import ssim
 
-__all__ = ["flow_evaluate", "validity_mask", "psnr", "recon_evaluate", "ssim"]
+__all__ = ["flow_evaluate", "validity_mask", "fwl_metric", "voxel_warping_flow_loss", "psnr",
+           "recon_evaluate", "ssim"]

@@ -1,12 +1,15 @@
-"""The cista-eiflow, cista-eraft and cista-idnet composite steps (NCHW).
+"""The composite steps of every model mode (NCHW).
 
 Counterpart of cista_flow_tpu/models/composite.py (ref:
 e2v/e2v_model.py:138-308): estimate flow (DCEIFlow from the events and the
 previous reconstruction, E-RAFT from two consecutive voxels, or IDNet from
-the voxel and the previous step's predicted flow), warp the previous frame
-and the recurrent sparse code along it (kernel K2), then reconstruct with
-CISTA-LSTC. For cista-eraft there is also the time-parallel window, the
-twin of ``apply_sequence_eraft``.
+the voxel and the previous step's predicted flow; cista-lstc and
+cista-gtflow have no flow net and take zero flow or the GT flow), warp the
+previous frame and the recurrent sparse code along it (kernel K2), then
+reconstruct with CISTA-LSTC. Every mode takes ``batch_gt={'gt_flow'}``,
+which the warps then follow. For cista-eraft there is also the
+time-parallel window, the twin of ``apply_sequence_eraft``; for
+cista-eiflow the ``flow_half`` serving reduction.
 """
 from __future__ import annotations
 
@@ -45,23 +48,25 @@ class _Composite(nn.Module):
         self.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in sd.items()},
                              strict=True)
 
-    def _warp_inputs(self, rec_img0, state: CistaState, flow_final):
+    def _warp_inputs(self, rec_img0, state: CistaState, flow_final, half_flow=None):
         """Warp the previous frame (full res) and the sparse code (half res)
         along the flow, keeping the reference's zero-flow short-circuit
         (ref: e2v_model.py:184-185): both warps take the device-side gate
-        ``any(flow != 0)`` and select inside the kernel, with no host sync."""
+        ``any(flow != 0)`` and select inside the kernel, with no host sync.
+        ``half_flow``: the code's flow when the flow net already gives it
+        (``flow_half``); else ``flow_final`` resized by ``scale_factor``."""
         cfg = self.cfg
         any_flow = torch.any(flow_final)        # nonzero, as flow != 0
         warped_i = frame_warp(rec_img0, flow_final, mode=cfg.warp_mode, gate=any_flow)
-        half_flow = interpolate_scale(flow_final, cfg.scale_factor,
-                                      align_corners=True)
+        if half_flow is None:
+            half_flow = interpolate_scale(flow_final, cfg.scale_factor, align_corners=True)
         warped_z = frame_warp(state.sparse_code, half_flow, mode=cfg.warp_mode,
                               gate=any_flow)
         return warped_i, state._replace(sparse_code=warped_z)
 
-    def reconstruct(self, events, rec_img0, state: CistaState, flow_final):
+    def reconstruct(self, events, rec_img0, state: CistaState, flow_final, half_flow=None):
         """Warp along ``flow_final``, then CISTA-LSTC: (rec, new_state)."""
-        warped_i, state = self._warp_inputs(rec_img0, state, flow_final)
+        warped_i, state = self._warp_inputs(rec_img0, state, flow_final, half_flow)
         return self.cista_net(events, warped_i, state)
 
 
@@ -89,20 +94,40 @@ class CistaEIFlow(_Composite):
         backward direction. ``fix_net_name`` names the frozen subnet ('rec'
         or 'flow'): with 'flow' the predicted flow reaches the warps
         detached. The flow net's BatchNorm runs in train mode exactly when
-        this module is in train mode and the flow net is not frozen."""
+        this module is in train mode and the flow net is not frozen.
+
+        ``cfg.flow_half`` (serving; composite.py:147-171 of the JAX
+        package): the flow net runs on the events and the frame at half
+        size; the code's warp takes its flow as it is, the frame's warp its
+        x2 upsample with x2 magnitudes, which is ``batch_flow['flow_final']``."""
         batch_gt = batch_gt or {}
         iters = iters if iters is not None else self.cfg.default_flow_iters()
         self.event_flownet.train(self.training and fix_net_name != "flow")
-        batch_flow = self.event_flownet(
-            events, batch_gt.get("gt_img0", rec_img0), iters=iters,
-            collect_preds=collect_preds, image2=batch_gt.get("gt_img1"),
-            reversed_event_voxel=event_voxel_bw)
+        image1 = batch_gt.get("gt_img0", rec_img0)
+        half = None
+        if self.cfg.flow_half:
+            if batch_gt.get("gt_img1") is not None or event_voxel_bw is not None:
+                raise ValueError("flow_half serves and runs rec-phase graphs only: it takes "
+                                 "no gt_img1 and no event_voxel_bw")
+            batch_flow = dict(self.event_flownet(
+                interpolate_scale(events, 0.5, align_corners=False),
+                interpolate_scale(image1, 0.5, align_corners=False), iters=iters,
+                collect_preds=collect_preds))
+            half = batch_flow["flow_final"]
+            batch_flow["flow_final"] = 2.0 * interpolate_scale(half, 2.0, align_corners=True)
+        else:
+            batch_flow = self.event_flownet(
+                events, image1, iters=iters, collect_preds=collect_preds,
+                image2=batch_gt.get("gt_img1"), reversed_event_voxel=event_voxel_bw)
         flow_final = batch_flow["flow_final"]
         if fix_net_name == "flow":
             flow_final = flow_final.detach()
         if "gt_flow" in batch_gt:
             flow_final = batch_gt["gt_flow"]
-        rec, new_state = self.reconstruct(events, rec_img0, state, flow_final)
+        half_flow = None
+        if half is not None and "gt_flow" not in batch_gt and self.cfg.scale_factor == 0.5:
+            half_flow = half.detach() if fix_net_name == "flow" else half
+        rec, new_state = self.reconstruct(events, rec_img0, state, flow_final, half_flow)
         return rec, batch_flow, new_state
 
 
@@ -116,15 +141,16 @@ class CistaERAFT(_Composite):
         self.event_flownet = ERAFT(cfg.num_bins)
 
     def forward(self, events, rec_img0, state: CistaState, event_voxel_old,
-                iters=None, collect_preds: bool = False):
+                iters=None, collect_preds: bool = False, batch_gt=None):
         """One reconstruction step; ``event_voxel_old`` is the previous
-        step's voxel (zeros at the start of a stream). Returns (rec,
-        batch_flow, new_state)."""
+        step's voxel (zeros at the start of a stream); the warps follow
+        ``batch_gt['gt_flow']`` where it is given. Returns (rec, batch_flow,
+        new_state)."""
         iters = iters if iters is not None else self.cfg.default_flow_iters()
         batch_flow = self.event_flownet(event_voxel_old, events, iters=iters,
                                         collect_preds=collect_preds)
-        rec, new_state = self.reconstruct(events, rec_img0, state,
-                                          batch_flow["flow_final"])
+        flow_final = (batch_gt or {}).get("gt_flow", batch_flow["flow_final"])
+        rec, new_state = self.reconstruct(events, rec_img0, state, flow_final)
         return rec, batch_flow, new_state
 
     def window_flows(self, voxel_seq, iters: int):
@@ -186,20 +212,46 @@ class CistaIDNet(_Composite):
         self.event_flownet = IDNet()
 
     def forward(self, events, rec_img0, state: CistaState, iters=None,
-                flow_init=None, collect_preds: bool = False):
-        """One reconstruction step; ``iters`` deblur iterations (default 1).
-        Returns (rec, batch_flow, new_state)."""
+                flow_init=None, collect_preds: bool = False, batch_gt=None):
+        """One reconstruction step; ``iters`` deblur iterations (default 1);
+        the warps follow ``batch_gt['gt_flow']`` where it is given. Returns
+        (rec, batch_flow, new_state)."""
         iters = iters if iters is not None else self.cfg.default_flow_iters()
         batch_flow = self.event_flownet(events, flow_init=flow_init, iters=iters,
                                         collect_preds=collect_preds)
         # the warps take an f32 flow; in bf16 the flow net's is bf16
-        rec, new_state = self.reconstruct(events, rec_img0, state,
-                                          batch_flow["flow_final"].float())
+        flow_final = (batch_gt or {}).get("gt_flow", batch_flow["flow_final"].float())
+        rec, new_state = self.reconstruct(events, rec_img0, state, flow_final)
         return rec, batch_flow, new_state
 
 
+class CistaLSTCOnly(_Composite):
+    """cista-lstc and cista-gtflow (ref: e2v/e2v_model.py CistaLSTCNet): no
+    flow net. The warps follow ``batch_gt['gt_flow']`` (cista-gtflow) or a
+    zero flow (cista-lstc, whose warps' gate then passes the inputs
+    through); ``batch_flow['flow_final']`` is that flow."""
+
+    def forward(self, events, rec_img0, state: CistaState, iters=None,
+                collect_preds: bool = False, batch_gt=None):
+        flow = (batch_gt or {}).get("gt_flow")
+        if flow is None:
+            b, _, h, w = rec_img0.shape
+            flow = torch.zeros((b, 2, h, w), dtype=torch.float32, device=rec_img0.device)
+        rec, new_state = self.reconstruct(events, rec_img0, state, flow)
+        return rec, {"flow_final": flow, "flow_preds": []}, new_state
+
+    def load_reference_state(self, sd: dict) -> None:
+        """A full checkpoint loads too: its flow net's ``event_flownet.*``
+        keys are dropped (as the JAX package's ``composite_params`` reads
+        only ``cista_net.*`` for these modes) and every other key is held
+        strictly."""
+        super().load_reference_state(
+            {k: v for k, v in sd.items() if not k.startswith("event_flownet.")})
+
+
 MODELS = {"cista-eiflow": CistaEIFlow, "cista-eraft": CistaERAFT,
-          "cista-idnet": CistaIDNet}
+          "cista-idnet": CistaIDNet, "cista-lstc": CistaLSTCOnly,
+          "cista-gtflow": CistaLSTCOnly}
 
 
 def init(cfg: Config, device=None, seed: int | None = None) -> _Composite:
@@ -207,7 +259,7 @@ def init(cfg: Config, device=None, seed: int | None = None) -> _Composite:
     ``cfg.seed``), on ``device`` (default: the GPU; raises without one)."""
     dev = resolve_device(device)
     if cfg.model_mode not in MODELS:
-        raise ValueError(f"model_mode {cfg.model_mode!r} is not ported yet; "
+        raise ValueError(f"unknown model_mode {cfg.model_mode!r}; "
                          f"only {sorted(MODELS)} are")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed if seed is None else seed)

@@ -1,14 +1,15 @@
-"""Streaming reconstructor for the cista-eiflow, cista-eraft and
-cista-idnet serving steps.
+"""Streaming reconstructor for every model mode's serving step.
 
 Counterpart of cista_flow_tpu/runner.py ``Reconstructor`` (ref:
 test_with_flow.py:24-88): build the composite, load
-``cfg.path_to_test_model`` (reference key layout), then step it in a closed
-loop. ``step_window`` runs a whole window on the device and copies to the
-host once at the end: a Python loop over the steps for cista-eiflow and
-cista-idnet, the time-parallel window (all flows in one call, then the
-recurrence) for cista-eraft, whose flow needs the previous voxel and no
-reconstruction. In f32 the steps run with cuDNN's TF32 off
+``cfg.path_to_test_model`` (reference key layout; with
+``load_epoch_for_test`` the checkpoint of that epoch in the folder), then
+step it in a closed loop. ``step_window`` runs a whole window on the device
+and copies to the host once at the end: a Python loop over the steps, or
+for cista-eraft the time-parallel window (all flows in one call, then the
+recurrence), whose flow needs the previous voxel and no reconstruction.
+With ``use_gt_flow`` every mode's warps follow the given GT flows (and
+cista-eraft's window steps). In f32 the steps run with cuDNN's TF32 off
 (``device.cudnn_fp32``), and the caller's flags are left as they were.
 """
 from __future__ import annotations
@@ -24,6 +25,28 @@ from .device import DTYPES, cudnn_fp32, resolve_device
 from .models import composite
 
 
+def model_name_from_cfg(cfg) -> str:
+    """The output folder's name of a model built from the config alone
+    (cista_flow_tpu/runner.py:21-26)."""
+    base = f"{cfg.model_mode}_b{cfg.num_bins}_d{cfg.depth}_c{cfg.base_channels}"
+    return f"{cfg.model_name}_{base}" if cfg.model_name else base
+
+
+def checkpoint_and_name(cfg) -> tuple:
+    """(checkpoint path or None, model name), as the JAX runner names them
+    (cista_flow_tpu/runner.py:38-52): with ``load_epoch_for_test`` the
+    checkpoint ``<folder>/<folder name>_<epoch>.pth.tar`` under the name
+    ``<folder name>/<epoch>``; else the file's name without its extension."""
+    path = cfg.path_to_test_model
+    if not path:
+        return None, model_name_from_cfg(cfg)
+    if cfg.load_epoch_for_test:
+        name = path.rstrip("/").split("/")[-1]
+        return (os.path.join(path, f"{name}_{cfg.load_epoch_for_test}.pth.tar"),
+                f"{name}/{cfg.load_epoch_for_test}")
+    return path, os.path.splitext(os.path.basename(path))[0]
+
+
 class Reconstructor:
     """Closed-loop reconstructor over a batch of ``batch`` streams."""
 
@@ -34,13 +57,15 @@ class Reconstructor:
         self.batch = batch
         self.image_dim = tuple(cfg.image_dim)
         self.model = composite.init(cfg, device="cpu")
-        if cfg.path_to_test_model:
-            self.model.load_reference_state(
-                weights.load_state_dict(cfg.path_to_test_model))
+        path, self.model_name = checkpoint_and_name(cfg)
+        if path:
+            self.model.load_reference_state(weights.load_state_dict(path))
+        if cfg.path_to_e2v:
+            # a CISTA-LSTC checkpoint over the composite's (ref: test_with_flow.py:70-72)
+            sd = weights.tie_ista_blocks(weights.load_state_dict(cfg.path_to_e2v), cfg.depth)
+            self.model.cista_net.load_state_dict(
+                {k: torch.tensor(np.asarray(v)) for k, v in sd.items()}, strict=True)
         self.model.to(self.device, self.dtype)
-        self.model_name = (os.path.splitext(os.path.basename(cfg.path_to_test_model))[0]
-                           if cfg.path_to_test_model else
-                           f"{cfg.model_mode}_b{cfg.num_bins}_d{cfg.depth}_c{cfg.base_channels}")
         self.iters = cfg.default_flow_iters()
         self.mode = cfg.model_mode
         self.reset()
@@ -65,40 +90,47 @@ class Reconstructor:
         return cudnn_fp32() if self.dtype == torch.float32 else contextlib.nullcontext()
 
     @torch.no_grad()
-    def run_step(self, events: torch.Tensor):
+    def run_step(self, events: torch.Tensor, gt_flow: torch.Tensor | None = None):
         """One step on the device: events (B, bins, H, W) in the compute
-        dtype -> (rec (B, 1, H, W), flow (B, 2, H, W)); carries the state,
-        the frame and ``extra``."""
+        dtype (and, to have the warps follow it, ``gt_flow`` (B, 2, H, W)
+        in f32) -> (rec (B, 1, H, W), flow (B, 2, H, W)); carries the state,
+        the frame and ``extra``. The flow returned is the flow net's (the
+        GT flow in the no-flow modes), as the JAX runner returns it."""
+        batch_gt = {} if gt_flow is None else {"gt_flow": gt_flow}
         with self._precision():
             if self.mode == "cista-eraft":
                 rec, batch_flow, self.state = self.model(
-                    events, self.prev_image, self.state, self.extra, iters=self.iters)
+                    events, self.prev_image, self.state, self.extra, iters=self.iters,
+                    batch_gt=batch_gt)
                 self.extra = events
             elif self.mode == "cista-idnet":
                 rec, batch_flow, self.state = self.model(
                     events, self.prev_image, self.state, iters=self.iters,
-                    flow_init=self.extra)
+                    flow_init=self.extra, batch_gt=batch_gt)
                 self.extra = batch_flow["next_flow"]
             else:
                 rec, batch_flow, self.state = self.model(
-                    events, self.prev_image, self.state, iters=self.iters)
+                    events, self.prev_image, self.state, iters=self.iters, batch_gt=batch_gt)
         self.prev_image = rec
         return rec, batch_flow["flow_final"]
 
     @torch.no_grad()
-    def run_window(self, events: torch.Tensor):
-        """events: (T, B, bins, H, W) on the device in the compute dtype.
-        Returns recs (T, B, 1, H, W) and flows (T, B, 2, H, W) on the device,
-        and carries the state, the last frame and ``extra`` to the next
-        call."""
-        if self.mode == "cista-eraft":
+    def run_window(self, events: torch.Tensor, gt_flows: torch.Tensor | None = None):
+        """events: (T, B, bins, H, W) on the device in the compute dtype;
+        ``gt_flows`` (T, B, 2, H, W) in f32 or None. Returns recs
+        (T, B, 1, H, W) and flows (T, B, 2, H, W) on the device, and carries
+        the state, the last frame and ``extra`` to the next call. cista-eraft
+        without GT flows takes the time-parallel window; with them it steps,
+        as the JAX runner does (cista_flow_tpu/runner.py:152)."""
+        if self.mode == "cista-eraft" and gt_flows is None:
             with self._precision():
                 recs, flows, self.state = self.model.forward_window(
                     torch.cat([self.extra[None], events]), self.prev_image,
                     self.state, iters=self.iters)
             self.prev_image, self.extra = recs[-1], events[-1]
             return recs, flows
-        out = [self.run_step(ev) for ev in events]
+        out = [self.run_step(ev, None if gt_flows is None else gt_flows[t])
+               for t, ev in enumerate(events)]
         return torch.stack([r for r, _ in out]), torch.stack([f for _, f in out])
 
     def device_events(self, voxels) -> torch.Tensor:
@@ -110,24 +142,46 @@ class Reconstructor:
                              f"has {self.batch}")
         return torch.from_numpy(v).to(self.device, self.dtype)
 
-    def step(self, voxel_chw: np.ndarray):
-        """One reconstruction. voxel: (bins, H, W) (or (B, bins, H, W)).
+    def device_flows(self, flows, steps: int, use_gt_flow: bool):
+        """GT flows (T, 2, H, W) (or (T, B, 2, H, W)) as f32 on the device
+        when ``use_gt_flow``, zeros where none are given (as the JAX runner
+        passes zeros); None otherwise."""
+        if not use_gt_flow:
+            return None
+        h, w = self.image_dim
+        if flows is None:
+            return torch.zeros((steps, self.batch, 2, h, w), device=self.device)
+        f = np.asarray(flows, np.float32)
+        if f.ndim == 4:
+            f = f[:, None]
+        return torch.from_numpy(f).to(self.device)
+
+    def step(self, voxel_chw: np.ndarray, gt_flow_chw: np.ndarray | None = None,
+             use_gt_flow: bool = False):
+        """One reconstruction. voxel: (bins, H, W) (or (B, bins, H, W));
+        with ``use_gt_flow`` the warps follow ``gt_flow_chw`` (2, H, W).
         Returns (rec (H, W), flow (2, H, W)) as f32 numpy, batch axis kept
         when B > 1. For cista-eraft this is the stepwise path (fnet on the
         previous and the current voxel); ``step_window`` is the
         time-parallel one."""
-        rec, flow = self.run_step(self.device_events(np.asarray(voxel_chw)[None])[0])
+        gt = self.device_flows(None if gt_flow_chw is None else np.asarray(gt_flow_chw)[None],
+                               1, use_gt_flow)
+        rec, flow = self.run_step(self.device_events(np.asarray(voxel_chw)[None])[0],
+                                  None if gt is None else gt[0])
         return self._to_host(rec[None], flow[None], return_all=False)
 
-    def step_window(self, voxels, return_all: bool = False):
+    def step_window(self, voxels, gt_flows_chw=None, use_gt_flow: bool = False,
+                    return_all: bool = False):
         """T reconstructions, one host transfer. ``voxels``: a list or array
-        of (bins, H, W) voxels (or (T, B, bins, H, W)). Returns the last
-        step's (rec (H, W), flow (2, H, W)), or with ``return_all`` every
-        step's (recs (T, H, W), flows (T, 2, H, W)); a batch axis follows T
-        when B > 1."""
+        of (bins, H, W) voxels (or (T, B, bins, H, W)); with ``use_gt_flow``
+        the warps follow ``gt_flows_chw``, T flows (2, H, W). Returns the
+        last step's (rec (H, W), flow (2, H, W)), or with ``return_all``
+        every step's (recs (T, H, W), flows (T, 2, H, W)); a batch axis
+        follows T when B > 1."""
         if len(voxels) == 0:
             raise ValueError("empty window")
-        recs, flows = self.run_window(self.device_events(voxels))
+        recs, flows = self.run_window(self.device_events(voxels),
+                                      self.device_flows(gt_flows_chw, len(voxels), use_gt_flow))
         return self._to_host(recs, flows, return_all)
 
     def _to_host(self, recs, flows, return_all: bool):

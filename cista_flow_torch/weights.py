@@ -140,11 +140,12 @@ def _idnet(out, pre, f):
 
 
 def from_jax(params_np: dict, model_state_np: dict) -> dict:
-    """cista-eiflow, cista-eraft or cista-idnet ``(params, model_state)`` of
-    ``composite.init`` (leaves as numpy arrays) -> the reference key layout
-    (``cista_net.*``, ``event_flownet.*``), with the ISTA block under
-    ``lista_blocks.0``. The flow tree tells them apart: IDNet has no
-    context encoder, DCEIFlow has an event encoder, E-RAFT a mask head."""
+    """``(params, model_state)`` of ``composite.init`` (leaves as numpy
+    arrays) in any model mode -> the reference key layout (``cista_net.*``,
+    ``event_flownet.*``), with the ISTA block under ``lista_blocks.0``. The
+    flow tree tells the modes apart: cista-lstc and cista-gtflow have none
+    (``params['flow'] == {}``), IDNet has no context encoder, DCEIFlow has
+    an event encoder, E-RAFT a mask head."""
     out = {}
     c = params_np["cista"]
     pre = "cista_net."
@@ -162,6 +163,8 @@ def from_jax(params_np: dict, model_state_np: dict) -> dict:
 
     f, s = params_np["flow"], model_state_np["flow"]
     pre = "event_flownet."
+    if not f:                            # cista-lstc, cista-gtflow
+        return out
     if "cnet" not in f:
         _idnet(out, pre, f)
         return out

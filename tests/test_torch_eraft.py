@@ -303,14 +303,15 @@ def test_variant_routes_match_the_default_route():
 
 
 def test_default_device_is_cuda_and_idnet_is_refused():
-    """The default device is the card; cista-idnet, refused until it was
-    ported, now builds, and a mode still not ported is refused."""
+    """The default device is the card; cista-idnet and cista-lstc, refused
+    until they were ported, now build, and an unknown mode is refused."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Reconstructor(Config(image_dim=(32, 32), model_mode="cista-eraft"))
     Reconstructor(Config(image_dim=(32, 32), model_mode="cista-idnet", depth=1), device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        Reconstructor(Config(image_dim=(32, 32), model_mode="cista-lstc"), device="cpu")
+    Reconstructor(Config(image_dim=(32, 32), model_mode="cista-lstc", depth=1), device="cpu")
+    with pytest.raises(ValueError, match="unknown model_mode"):
+        Reconstructor(Config(image_dim=(32, 32), model_mode="cista-raft"), device="cpu")
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         Reconstructor(Config(image_dim=(32, 32), model_mode="cista-eraft", depth=1,
