@@ -88,8 +88,20 @@ Phases (any failure raises and the exit code is non-zero):
     step and its forward/backward split, and the peak memory; bf16 with f32
     master parameters and a loss that falls over 3 steps on one repeated
     batch, and the cosine of its first-step gradients with f32's; the
-    saved checkpoint served by ``Reconstructor`` over one 16-step window.
-    ``--train-only`` runs the build, the kernel checks and this phase.
+    saved checkpoint served by ``Reconstructor`` over one 16-step window;
+10. training in every other mode (``train_modes``): one f32 train step on
+    the card against the CPU, T = 2, batch 1, for cista-eraft (1,1) in
+    phase 1 and phase 3's flow half, cista-idnet (1,2) and cista-gtflow at
+    depth 5 (``MODE_STEPS``), with ``leaf_report`` and the launches of
+    each step (``train_launches`` per mode); bf16 at each mode's reference
+    default (eraft (12,5), idnet (1,5), gtflow depth 5), T = 10, batch 4:
+    device ms per step, its forward/backward/optimizer split, the device-busy
+    share and the peak memory; remat on and off at eraft (12,5) (loss,
+    gradients, run-to-run, BN counts, both peaks); the exact resume through
+    ``train.Trainer`` against an uninterrupted run; a reduced
+    ``sim_quality`` (cista-gtflow) whose trained net must beat the untrained
+    one on PSNR.
+    ``--train-only`` runs the build, the kernel checks and phases 9 and 10.
 Each phase prints its time. The last lines are the ``kernels`` JSON (K1,
 K2, K4 and K4s with a row for each timed shape under ``shapes``), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -97,6 +109,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -214,8 +227,8 @@ def main(argv) -> int:
     # ---- 4.-9. the main paths, at the process's own TF32 flags -----------
     launches = {k: 0 for k in counters}
     phases = (flagship_path, eraft_path, variant_windows, f32_at_default_flags,
-              gate_replay, serving_clis, idnet_path, long_chunks, training_path)
-    for phase in (phases[-1:] if argv == ["--train-only"] else phases):
+              gate_replay, serving_clis, idnet_path, long_chunks, training_path, train_modes)
+    for phase in (phases[-2:] if argv == ["--train-only"] else phases):
         t_phase = time.perf_counter()
         for key, n in phase(torch, repo, counters).items():
             launches[key] += n
@@ -1441,24 +1454,32 @@ TRAIN_T, TRAIN_BATCH = 10, 4
 TRAIN_POINT = (6, 5, "gate/flagship_sim40_f16.npz")
 
 
-def train_launches(loss_mode: str, iters: int, t_len: int) -> dict:
-    """Kernel launches of one cista-eiflow train step of ``t_len`` steps;
-    the backward launches none (each kernel's gradient is autograd of its
-    plain version). Per step, as serving: K1 per GRU iteration, one ISTA
-    call, fnet's norms (one call over the frame pair) and enet's, K5 for the
-    three encoders' square convs and the upsamp conv; K2 for the two warps,
-    the loss's validity mask, the consistency term's warp of the previous
-    frame (loss 'rec', from step 2) and one photometric warp per GRU
-    iteration (loss 'flow' or 'both')."""
+def train_launches(loss_mode: str, iters: int, t_len: int, mode: str = "cista-eiflow") -> dict:
+    """Kernel launches of one train step of ``t_len`` steps; the backward
+    launches none (each kernel's gradient is autograd of its plain version).
+    Per step, in every mode: one ISTA call; K2 for the two warps, the loss's
+    validity mask, the consistency term's warp of the previous frame (loss
+    'rec', from step 2) and one photometric warp per flow prediction (loss
+    'flow' or 'both'; ``iters`` of them). cista-eiflow: K1 per GRU
+    iteration, fnet's norms (one call over the frame pair) and enet's, K5
+    for the three encoders' square convs and the upsamp conv. cista-eraft,
+    stepwise: K1 per GRU iteration, fnet's norms over both voxels, K5 for
+    fnet's and cnet's square convs and the upsamp conv. cista-idnet: K5 for
+    the LiteEncoder's three 64->64 convs per deblur iteration and the
+    upsamp conv. cista-lstc and cista-gtflow: the upsamp conv."""
     k2 = sum(3 + (loss_mode == "rec" and s >= 2) + (iters if loss_mode != "rec" else 0)
              for s in range(t_len))
-    return {"K1": iters * t_len, "K2": k2, "K3": t_len, "K4": 2 * NORMS * t_len,
-            "K5": (3 * SQUARE_CONVS + 1) * t_len}
+    per_step = {"cista-eiflow": {"K1": iters, "K4": 2 * NORMS, "K5": 3 * SQUARE_CONVS + 1},
+                "cista-eraft": {"K1": iters, "K4": NORMS, "K5": 2 * SQUARE_CONVS + 1},
+                "cista-idnet": {"K5": IDNET_SQUARE_CONVS * iters + 1}}.get(mode, {"K5": 1})
+    return {"K2": k2, "K3": t_len, **{k: n * t_len for k, n in per_step.items()}}
 
 
-def train_batch(torch, repo: Path, t_len: int, batch: int, device) -> dict:
+def train_batch(torch, repo: Path, t_len: int, batch: int, device,
+                mode: str = "cista-eiflow") -> dict:
     """The first ``batch`` sequences of ``t_len`` steps of the simulated
-    training set (written on first use), as f32 tensors on ``device``."""
+    training set (written on first use), as f32 tensors on ``device``, with
+    what ``mode`` trains on (cista-eraft: the previous voxel)."""
     from cista_flow_torch.config import Config
     from cista_flow_torch.data.sim import write_train_dataset
     from cista_flow_torch.data.train_loader import StackedSequenceLoader, TrainSequenceDataset
@@ -1467,13 +1488,15 @@ def train_batch(torch, repo: Path, t_len: int, batch: int, device) -> dict:
     index = data / "train_e2v_estflow.txt"
     if not index.exists():
         write_train_dataset(str(data), TRAIN_VIDEOS, TRAIN_FRAMES, H, W, seed=0)
-    cfg = Config(image_dim=(H, W), path_to_train_data=str(data), len_sequence=t_len)
+    cfg = Config(image_dim=(H, W), path_to_train_data=str(data), len_sequence=t_len,
+                 model_mode=mode)
     loader = StackedSequenceLoader(TrainSequenceDataset(str(index), cfg), batch, t_len,
                                    shuffle=False, num_workers=0)
     return {k: torch.from_numpy(v).to(device, torch.float32) for k, v in next(iter(loader)).items()}
 
 
-def leaf_report(name, got: dict, ref: dict, tol: float, flow_trains: bool) -> None:
+def leaf_report(name, got: dict, ref: dict, tol: float, flow_trains: bool,
+                mode: str = "cista-eiflow") -> None:
     """Every gradient leaf of ``got`` against ``ref`` at ``tol`` of the
     leaf's largest magnitude, with two kinds of exception, each held to a
     relative L2 error instead and printed: the tied ISTA block, whose
@@ -1483,9 +1506,10 @@ def leaf_report(name, got: dict, ref: dict, tol: float, flow_trains: bool) -> No
     encoders at 1e-2: they read inputs that are constant over most of the
     frame (the zero first reconstruction; event voxels, zero on most
     pixels), whose normalisations make their weight gradients sums that
-    cancel (see tests/test_torch_train_step.py). A bias that feeds a
-    normalisation (true gradient 0) is held to 1e-5 of the step's largest
-    gradient."""
+    cancel (see tests/test_torch_train_step.py; cista-eraft has fnet and
+    cnet). A bias that feeds a normalisation (true gradient 0) is held to
+    1e-5 of the step's largest gradient. IDNet's and the GT-flow modes'
+    leaves have no norms and take neither exception but the ISTA block's."""
     import re
     pre_norm = re.compile(r"event_flownet\.(fnet|enet|cnet)\.(conv1|layer\d\.\d\."
                           r"(conv1|conv2|downsample\.0))\.bias")
@@ -1494,7 +1518,8 @@ def leaf_report(name, got: dict, ref: dict, tol: float, flow_trains: bool) -> No
     rows, bad = [], []
     for k, r in ref.items():
         g = got[k]
-        if pre_norm.match(k):
+        normed = mode in ("cista-eiflow", "cista-eraft")
+        if normed and pre_norm.match(k):
             if float(g.abs().max()) > 1e-5 * top:
                 bad.append(k)
             continue
@@ -1507,7 +1532,7 @@ def leaf_report(name, got: dict, ref: dict, tol: float, flow_trains: bool) -> No
         l2 = float((g - r).norm() / r.norm())
         if ".lista_blocks." in k:
             limit, err = tol, l2
-        elif flow_trains and k.startswith(encoders):
+        elif normed and flow_trains and k.startswith(encoders):
             limit, err = 1e-2, l2
         else:
             limit, err = tol, ratio
@@ -1693,7 +1718,7 @@ class StepWatch:
         return watched
 
 
-def train_step_split(torch, model, cfg, seq, fix, mode):
+def train_step_split(torch, model, cfg, seq, fix, mode, use_gt_flow=False, remat=False):
     """Device ms of one train step's forward (the unroll and its losses),
     backward and optimizer step, from CUDA events, on ``model`` with a fresh
     optimizer."""
@@ -1709,9 +1734,9 @@ def train_step_split(torch, model, cfg, seq, fix, mode):
     with cudnn_fp32_scope(torch, cfg.dtype):
         ev[0].record()
         with TS.parameters_as(model, dtype):
-            loss = TS.unroll_loss(model, seq, cfg, mode, fix, False, dtype)
-        ev[1].record()
-        loss.backward()
+            loss = TS.unroll_loss(model, seq, cfg, mode, fix, use_gt_flow, dtype, remat=remat)
+            ev[1].record()
+            loss.backward()
         ev[2].record()
     TS.optimizer_step(model, opt)
     ev[3].record()
@@ -1828,6 +1853,295 @@ def training_path(torch, repo: Path, counters: dict) -> dict:
     check_outputs(out, flows, STEPS)
     for key in total:
         total[key] += got[key]
+    return total
+
+
+# phase 10: (mode, iters, depth, anchor, [(fix, loss_mode, use_gt_flow, tag)])
+MODE_STEPS = (
+    ("cista-eraft", 1, 1, "gate/eraft_ft1_f16.npz",
+     (("rec", "flow", True, "phase 1"), ("rec", "both", False, "phase 3 flow half"))),
+    ("cista-idnet", 1, 2, "gate/idnet_ft2_f16.npz", (("rec", "both", False, "phase 3 flow half"),)),
+    ("cista-gtflow", 1, 5, "gate/flagship_sim40_f16.npz", ((None, "rec", True, "GT flow"),)),
+)
+# each mode's reference default, bf16, in the phase that trains the most
+MODE_BF16 = (("cista-eraft", 12, 5, "gate/eraft_sim40_f16.npz", "rec", "both", False),
+             ("cista-idnet", 1, 5, "gate/idnet_sim40_f16.npz", "rec", "both", False),
+             ("cista-gtflow", 1, 5, "gate/flagship_sim40_f16.npz", None, "rec", True))
+SIM_SMOKE = ["--n_videos", "6", "--n_frames", "21", "--eval_frames", "12", "--epochs", "6",
+             "--batch_size", "4", "--len_sequence", "10"]
+
+
+def mode_model(torch, cfg, repo: Path, anchor: str, device):
+    from cista_flow_torch import weights
+    from cista_flow_torch.models import composite
+    model = composite.init(cfg, device="cpu")
+    model.load_reference_state(weights.load_state_dict(str(repo / anchor)))
+    return model.to(device)
+
+
+def modes_against_cpu(torch, repo: Path, counters: dict) -> dict:
+    """One f32 train step per mode and phase on the card against the same
+    step on the CPU (plain versions), T = 2, batch 1 (``MODE_STEPS``): the
+    loss to 1e-5 relative, every gradient leaf by ``leaf_report`` at 1e-3,
+    a gradient on the card wherever the CPU has one, and the launches of
+    the card's step."""
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.parallel import train_step as TS
+
+    total = {k: 0 for k in counters}
+    for mode, iters, depth, anchor, phases in MODE_STEPS:
+        cfg = Config(image_dim=(H, W), model_mode=mode, depth=depth, flow_iters=iters)
+        seq = train_batch(torch, repo, 2, 1, "cpu", mode)
+        for fix, loss_mode, gt, phase in phases:
+            tag = f"{mode} ({iters},{depth}) {phase}"
+            grads, losses = {}, {}
+            for dev in ("cpu", "cuda"):
+                model = mode_model(torch, cfg, repo, anchor, dev)
+                step = TS.make_train_step(cfg, TS.make_optimizer(model, 1e-4), loss_mode, fix, gt)
+                batch = {k: v.to(dev) for k, v in seq.items()}
+                if dev == "cuda":
+                    loss, got = counted(counters, lambda: step(model, batch))
+                    expect_launches(f"{tag}, f32 T=2 step", got,
+                                    train_launches(loss_mode, iters, 2, mode))
+                    for key in total:
+                        total[key] += got[key]
+                else:
+                    loss = step(model, batch)
+                losses[dev] = float(loss)
+                grads[dev] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                              if p.grad is not None}
+            rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+            print(f"  {tag}: loss card {losses['cuda']:.7f}, cpu {losses['cpu']:.7f}, "
+                  f"relative difference {rel:.3e} (tol 1e-5)")
+            if rel > 1e-5:
+                raise AssertionError(f"{tag}: loss differs by {rel}")
+            if sorted(grads["cuda"]) != sorted(grads["cpu"]):
+                raise AssertionError(f"{tag}: the card's gradient leaves are not the CPU's")
+            cut = [k for k, g in grads["cpu"].items()
+                   if float(g.abs().max()) > 0 and float(grads["cuda"][k].abs().max()) == 0]
+            if cut:
+                raise AssertionError(f"{tag}: no gradient on the card for {cut[:8]}")
+            leaf_report(tag, grads["cuda"], grads["cpu"], 1e-3, fix == "rec", mode)
+    return total
+
+
+def busy_share(torch, step, model, seq, ms: float) -> float:
+    """The kernel time of a profiler trace of one step (the card's activity
+    alone) over ``ms``, the device time of the same step untraced."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(model, seq)
+        torch.cuda.synchronize()
+    kernels = sum(e.device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return kernels / ms
+
+
+def modes_bf16(torch, repo: Path, counters: dict) -> dict:
+    """bf16 training at full width at each mode's reference default
+    (``MODE_BF16``), T = 10, batch 4, from the anchors: one warm-up step,
+    then a counted step (launches against ``train_launches``) timed by
+    CUDA events with the peak memory, the forward/backward/optimizer split,
+    and the device-busy share of a traced step. Then remat on and off at
+    cista-eraft (12,5): loss and gradients against the run without remat
+    and against a second run without it (run-to-run), and both peaks."""
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.parallel import train_step as TS
+
+    total = {k: 0 for k in counters}
+    for mode, iters, depth, anchor, fix, loss_mode, gt in MODE_BF16:
+        cfg = Config(image_dim=(H, W), model_mode=mode, depth=depth, flow_iters=iters,
+                     dtype="bfloat16")
+        seq = train_batch(torch, repo, TRAIN_T, TRAIN_BATCH, "cuda", mode)
+        model = mode_model(torch, cfg, repo, anchor, "cuda")
+        step = TS.make_train_step(cfg, TS.make_optimizer(model, 1e-4), loss_mode, fix, gt)
+        t0 = time.perf_counter()
+        step(model, seq)                                        # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, got = counted(counters, lambda: step(model, seq))
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tag = f"{mode} ({iters},{depth}) bf16, T={TRAIN_T}, batch {TRAIN_BATCH}"
+        expect_launches(f"{tag} step", got, train_launches(loss_mode, iters, TRAIN_T, mode))
+        for key in total:
+            total[key] += got[key]
+        t2 = time.perf_counter()
+        split = train_step_split(torch, model, cfg, seq, fix, loss_mode, gt)
+        t3 = time.perf_counter()
+        busy = busy_share(torch, step, model, seq, ms)
+        if not np.isfinite(float(loss)):
+            raise AssertionError(f"{tag}: loss {float(loss)}")
+        print(f"  {tag}: loss {float(loss):.4f}; device ms per step {ms:.1f} (forward "
+              f"{split[0]:.1f}, backward {split[1]:.1f}, optimizer {split[2]:.1f}); device "
+              f"busy {100 * busy:.1f}%; peak memory {peak:.2f} GiB (host s: warm-up "
+              f"{t1 - t0:.1f}, step {t2 - t1:.1f}, split {t3 - t2:.1f}, traced step "
+              f"{time.perf_counter() - t3:.1f})")
+
+    # remat on and off at cista-eraft (12,5), bf16, the flow net training
+    mode, iters, depth, anchor, fix, loss_mode, gt = MODE_BF16[0]
+    cfg = Config(image_dim=(H, W), model_mode=mode, depth=depth, flow_iters=iters,
+                 dtype="bfloat16")
+    seq = train_batch(torch, repo, TRAIN_T, TRAIN_BATCH, "cuda", mode)
+    model = mode_model(torch, cfg, repo, anchor, "cuda").train()
+    TS.freeze(model, fix)
+    runs = {}
+    for tag, remat in (("off", False), ("off again", False), ("on", True)):
+        for p in model.parameters():
+            p.grad = None
+        tracked = [int(b) for n, b in model.named_buffers() if n.endswith("num_batches_tracked")]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with TS.parameters_as(model, torch.bfloat16):
+            loss = TS.unroll_loss(model, seq, cfg, loss_mode, fix, gt, torch.bfloat16,
+                                  remat=remat)
+            loss.backward()
+        torch.cuda.synchronize()
+        moved = {int(b) - t for (n, b), t in zip(
+            ((n, b) for n, b in model.named_buffers() if n.endswith("num_batches_tracked")),
+            tracked)}
+        if moved != {TRAIN_T}:
+            raise AssertionError(f"remat {tag}: BN counts moved by {moved}, not {TRAIN_T}")
+        runs[tag] = (float(loss), {n: p.grad.detach().float().clone()
+                                   for n, p in model.named_parameters() if p.grad is not None},
+                     torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    pre_norm = re.compile(r"event_flownet\.(fnet|cnet)\.(conv1|layer\d\.\d\."
+                          r"(conv1|conv2|downsample\.0))\.bias")
+
+    def diff(a, b):
+        """(bit for bit, the loss's relative difference, the gradients'
+        relative L2 difference over every leaf but the pre-norm biases,
+        whose true gradient is 0 and whose computed one is rounding)."""
+        same = a[0] == b[0] and all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+        keys = [k for k in a[1] if not pre_norm.match(k)]
+        ga, gb = (torch.cat([g[1][k].flatten() for k in keys]) for g in (a, b))
+        return same, abs(a[0] - b[0]) / abs(a[0]), float((ga - gb).norm() / gb.norm())
+    for other in ("off again", "on"):
+        same, dl, dg = diff(runs["off"], runs[other])
+        print(f"  remat: off against {other}: bit for bit {same}; loss {dl:.3e} relative; "
+              f"gradients {dg:.3e} relative L2 (pre-norm biases aside)")
+    same_rr, dl_rr, dg_rr = diff(runs["off"], runs["off again"])
+    same, dl, dg = diff(runs["off"], runs["on"])
+    print(f"  remat peak memory: off {runs['off'][2]:.2f} GiB, on {runs['on'][2]:.2f} GiB")
+    if not same and (dl > max(4 * dl_rr, 1e-6) or dg > max(4 * dg_rr, 1e-3)):
+        raise AssertionError(f"remat moves the step beyond run-to-run: {dl}, {dg} against "
+                             f"{dl_rr}, {dg_rr}")
+    if runs["on"][2] >= runs["off"][2]:
+        raise AssertionError("remat does not lower the peak memory")
+    return total
+
+
+def resume_round_trip(torch, repo: Path, counters: dict) -> dict:
+    """The exact resume on the card: ``train.Trainer`` at cista-eraft (1,1),
+    f32, T = 5, batch 4, over phases 1 and 2 with ``orbax_ckpt`` (full-state
+    saves after epochs 1 and 2); a new trainer with ``load_epoch_for_train
+    -1`` holds the saving trainer's parameters, BN buffers and Adam state
+    bit for bit; each takes epoch 3 (phase 3's flow half), and so does a
+    second resumed trainer. The resumed run must equal the uninterrupted one
+    as closely as two resumed runs equal each other (the card's atomics in
+    the plain backward, which Adam turns into whole steps on gradients that
+    are rounding, make neither bit for bit)."""
+    import shutil
+
+    from cista_flow_torch import train
+    from cista_flow_torch.config import Config
+
+    out = repo / "build" / "train_models" / "resume"
+    shutil.rmtree(out, ignore_errors=True)
+
+    def trainer(epochs, **kw):
+        return train.Trainer(Config(
+            image_dim=(H, W), model_mode="cista-eraft", depth=1, flow_iters=1,
+            path_to_train_data=str(repo / "build" / "train_data"), path_to_model=str(out),
+            path_to_e2vflow=str(repo / "gate/eraft_ft1_f16.npz"), len_sequence=5,
+            batch_size=TRAIN_BATCH, flow_epoch=1, rec_epoch=1, epochs=epochs, shuffle=False,
+            orbax_ckpt=True, **kw), device="cuda")
+
+    pre_norm = re.compile(r"event_flownet\.(fnet|cnet)\.(conv1|layer\d\.\d\."
+                          r"(conv1|conv2|downsample\.0))\.bias")
+
+    def state(t):
+        opt = t.optimizer.state_dict()["state"]
+        return ({k: v.detach().clone() for k, v in t.model.state_dict().items()},
+                {i: {k: v.clone() for k, v in st.items()} for i, st in opt.items()})
+
+    def differ(a, b, names):
+        """The largest difference of the parameters and buffers; Adam's
+        moments' relative L2 difference over every parameter but the
+        pre-norm biases (whose gradient is rounding, and Adam's moments of
+        it noise); whether the step counts are equal."""
+        p = max(float((a[0][k].double() - b[0][k].double()).abs().max()) for k in a[0])
+        keep = [i for i in a[1] if not pre_norm.match(names[i])]
+        m = max(float((torch.cat([a[1][i][k].flatten() for i in keep])
+                       - torch.cat([b[1][i][k].flatten() for i in keep])).norm()
+                      / torch.cat([b[1][i][k].flatten() for i in keep]).norm())
+                for k in ("exp_avg", "exp_avg_sq"))
+        return p, m, all(torch.equal(a[1][i]["step"], b[1][i]["step"]) for i in a[1])
+
+    first = trainer(2)
+    first.run()
+    saved = state(first)
+    names = [n for n, _ in first.model.named_parameters()]     # the optimizer's order
+    runs = []
+    for _ in range(2):
+        resumed = trainer(3, load_epoch_for_train=-1)
+        if resumed.resume[1] != 2 or resumed.cfgs.load_epoch_for_train != 2:
+            raise AssertionError(f"resume chose {resumed.resume}")
+        restored = state(resumed)
+        if sorted(restored[1]) != sorted(saved[1]) or differ(restored, saved, names) != (0.0, 0.0, True):
+            raise AssertionError(f"resume: the restored state is not the saved one: "
+                                 f"{differ(restored, saved, names)}")
+        resumed.run()
+        runs.append(state(resumed))
+    print(f"  resume: from full_state step 2, restored bit for bit (parameters, BN buffers, "
+          f"Adam moments and step counts); epoch 3 next")
+    first.cfgs.epochs, first.cfgs.load_epoch_for_train = 3, 2
+    first.run()                                       # the uninterrupted run
+    p_rr, m_rr, _ = differ(runs[0], runs[1], names)
+    p, m, steps = differ(runs[0], state(first), names)
+    print(f"  resume, one more epoch: against the uninterrupted run parameters and buffers "
+          f"within {p:.3e}, Adam moments {m:.3e} relative L2 (pre-norm biases aside), step "
+          f"counts equal {steps}; two resumed runs: {p_rr:.3e}, {m_rr:.3e}")
+    if not steps or p > max(4 * p_rr, 1e-7) or m > max(4 * m_rr, 1e-6):
+        raise AssertionError("resume: the resumed run is not the uninterrupted one")
+    return {k: 0 for k in counters}
+
+
+def sim_quality_smoke(torch, repo: Path, counters: dict) -> dict:
+    """A reduced ``python -m cista_flow_torch.sim_quality`` (cista-gtflow,
+    180x240, bf16, ``SIM_SMOKE``) into the ignored ``build/sim_quality_smoke``;
+    the trained net must beat the untrained one on PSNR."""
+    import shutil
+
+    from cista_flow_torch import sim_quality
+
+    work = repo / "build" / "sim_quality_smoke"
+    shutil.rmtree(work / "models", ignore_errors=True)
+    t0 = time.perf_counter()
+    out, got = counted(counters, lambda: sim_quality.run(sim_quality.parse_args(
+        ["--workdir", str(work), *SIM_SMOKE])))
+    print(f"  sim_quality {' '.join(SIM_SMOKE)}: {json.dumps(out)}; launches {got}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not out["psnr_trained"] > out["psnr_init"]:
+        raise AssertionError(f"sim_quality: psnr_trained {out['psnr_trained']} <= "
+                             f"psnr_init {out['psnr_init']}")
+    return got
+
+
+def train_modes(torch, repo: Path, counters: dict) -> dict:
+    """Phase 10: training in every other mode. See the module's docstring."""
+    total = {k: 0 for k in counters}
+    train_batch(torch, repo, TRAIN_T, TRAIN_BATCH, "cpu")       # writes the set
+    for part in (modes_against_cpu, modes_bf16, resume_round_trip, sim_quality_smoke):
+        t0 = time.perf_counter()
+        for key, n in part(torch, repo, counters).items():
+            total[key] += n
+        print(f"  {part.__name__}: {time.perf_counter() - t0:.1f} s")
     return total
 
 

@@ -15,11 +15,10 @@ import argparse
 import dataclasses
 from dataclasses import dataclass
 
-# the JAX package's mesh, Pallas-routing and orbax flags, which have no
-# meaning on the card (cista_flow_tpu/configs.py:242-262)
+# the JAX package's mesh and Pallas-routing flags, which have no meaning on
+# the card (cista_flow_tpu/configs.py:242-262)
 TPU_ONLY_FLAGS = ("--mesh_shape", "--mesh_axes", "--serve_pallas", "--train_pallas",
-                  "--encoder_merge", "--corr_fuse_proj", "--eraft_pair_tower",
-                  "--orbax_ckpt")
+                  "--encoder_merge", "--corr_fuse_proj", "--eraft_pair_tower")
 
 
 @dataclass
@@ -38,6 +37,9 @@ class Config:
     eraft_tchunk: int = 0            # cista-eraft window: time steps per flow call (0 = all)
     flow_half: bool = False          # cista-eiflow serving: the flow net on the half domain
     seed: int = 1234
+    orbax_ckpt: bool = False         # also write full-state saves at every epoch save
+    save_every_steps: int = 0        # > 0: a full-state save every N optimizer steps
+    remat: bool = False              # recompute each unroll step in the backward
 
     # training (ref: utils/configs.py; cista_flow_tpu/configs.py:48-70)
     path_to_model: str = "models"
@@ -104,8 +106,9 @@ class Config:
 def add_args(parser: argparse.ArgumentParser) -> None:
     """The reference's flags (cista_flow_tpu/configs.py:160-240), the port's
     extensions ``--dtype``, ``--flow_iters``, ``--seed``,
-    ``--eraft_tchunk``, ``--flow_half``, and ``--device`` (``cuda``, the
-    default, or ``cpu``)."""
+    ``--eraft_tchunk``, ``--flow_half``, the JAX trainer's ``--orbax_ckpt``,
+    ``--remat`` and ``--save_every_steps`` (configs.py:228-230), and
+    ``--device`` (``cuda``, the default, or ``cpu``)."""
     a = parser.add_argument
     a("--image_dim", nargs=2, default=[180, 240], type=int)
     a("--path_to_model", default="models", type=str)
@@ -172,6 +175,12 @@ def add_args(parser: argparse.ArgumentParser) -> None:
     a("--seed", default=1234, type=int)
     a("--eraft_tchunk", default=0, type=int)
     a("--flow_half", action="store_true")
+    a("--orbax_ckpt", action="store_true",
+      help="also write the full training state at every epoch save (the port's "
+           "torch.save files, not orbax), for --load_epoch_for_train -1")
+    a("--remat", action="store_true", help="recompute each unroll step in the backward")
+    a("--save_every_steps", default=0, type=int,
+      help="> 0: a full-state save every N optimizer steps")
     a("--device", default="cuda", help="cuda (default) or cpu")
 
 

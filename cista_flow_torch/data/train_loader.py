@@ -8,8 +8,9 @@ data_readers/train_data_loaders.py ``TrainfusedEventData``): the index
 reversed twin), the two GT frames and the GT flow (and its backward twin).
 ``StackedSequenceLoader`` cuts the sequences into chunks of ``len_sequence``
 steps and yields dicts of (T, B, C, H, W) float32 arrays, the train step's
-input. Frames are read with the port's PNG codec; the cista-eraft loader's
-previous voxel is not ported.
+input. Frames are read with the port's PNG codec. For cista-eraft each step
+also carries ``event_voxel_old``, the previous line's window voxelized
+(zeros at a video's first frame).
 """
 from __future__ import annotations
 
@@ -27,9 +28,7 @@ class TrainSequenceDataset:
     (ref: train_data_loaders.py:15-17,51-60)."""
 
     def __init__(self, train_data_txt, cfgs):
-        if cfgs.model_mode == "cista-eraft":
-            raise NotImplementedError("the cista-eraft training data (event_voxel_old) "
-                                      "is not ported")
+        self.model_mode = cfgs.model_mode
         self.root = cfgs.path_to_train_data
         self.num_bins = cfgs.num_bins
         self.height, self.width = cfgs.image_dim
@@ -131,12 +130,22 @@ class TrainSequenceDataset:
 
     def get_step(self, line_id):
         """One step as (batch_data, batch_target) of CHW arrays: the voxel
-        (bins, H, W) [+ its reversed twin], the frames (1, H, W), the flow
-        (2, H, W) [+ its backward twin with ``is_bi``]."""
+        (bins, H, W) [+ its reversed twin] [+ cista-eraft's previous voxel],
+        the frames (1, H, W), the flow (2, H, W) [+ its backward twin with
+        ``is_bi``]."""
         window = self._load_events(self.event_paths[line_id])
         batch_data = {"event_voxel": self._voxel(window)}
         if self.is_reverse_events:
             batch_data["event_voxel_bw"] = self._voxel(window, is_reverse=True)
+        if self.model_mode == "cista-eraft":
+            # zeros at a video's first frame: the first line, or an events
+            # file whose frame index is 0 (cista_flow_tpu/data/train_loader.py:148-157)
+            name = self.event_paths[line_id]
+            if line_id == 0 or int(name.split(".")[-2].split("_")[-1]) == 0:
+                batch_data["event_voxel_old"] = np.zeros_like(batch_data["event_voxel"])
+            else:
+                batch_data["event_voxel_old"] = self._voxel(
+                    self._load_events(self.event_paths[line_id - 1]))
         batch_target = {"gt_img0": self._load_image(self.image_paths[line_id]),
                         "gt_img1": self._load_image(self.next_image_paths[line_id]),
                         "gt_flow": self._load_flow(self.flow_paths[line_id], self.flow_name)}

@@ -24,8 +24,9 @@ def validity_mask(gt_img0, gt_img1, gt_flow, warp_mode="forward"):
 
 
 def _seq_loss(flow_preds, flow_gt, gt_img0, gt_img1, valid_original, warp_mode):
-    """flow_preds: (iters, B, 2, H, W) or a list of (B, 2, H, W), at the
-    (padded) resolution of ``flow_gt`` or lower; a lower one takes the
+    """flow_preds: (iters, B, 2, H, W) or a list of (B, 2, H, W) (in any
+    float dtype; the loss runs in f32), at the (padded) resolution of
+    ``flow_gt`` or lower; a lower one takes the
     targets resized to it (align_corners), and its EPE is taken there too
     (the JAX package's ``_seq_loss`` subtracts the full-resolution target
     from the last prediction and raises at a lower one). Returns (loss,
@@ -37,7 +38,7 @@ def _seq_loss(flow_preds, flow_gt, gt_img0, gt_img1, valid_original, warp_mode):
     loss = 0.0
     for i in range(n):
         w = GAMMA ** (n - i - 1)
-        pred = flow_preds[i]
+        pred = flow_preds[i].float()        # IDNet's are in its compute dtype
         if same_res:
             i_loss = torch.abs(pred - flow_gt)
             photo = torch.abs(frame_warp(gt_img0, pred, mode=warp_mode) - gt_img1)
@@ -56,7 +57,7 @@ def _seq_loss(flow_preds, flow_gt, gt_img0, gt_img1, valid_original, warp_mode):
     if not same_res:
         flow_gt, valid = s_gt, s_valid
 
-    epe = torch.sqrt(torch.sum(valid * (flow_preds[-1] - flow_gt) ** 2, dim=1))
+    epe = torch.sqrt(torch.sum(valid * (flow_preds[-1].float() - flow_gt) ** 2, dim=1))
     ok = valid[:, 0] > 0
     mean_epe = (torch.sum(torch.where(ok, epe, torch.zeros_like(epe)))
                 / torch.clamp(torch.sum(ok), min=1))

@@ -1,20 +1,16 @@
 """The reconstruction loss, the combined flow + reconstruction loss and the
 reconstruction metrics (counterpart of cista_flow_tpu/losses/recon.py; ref:
-loss.py:15-24, 306-411). The reference adds LPIPS when its weights are
-present; none are, so the port has no LPIPS and accepts only
-``lpips_params=None``."""
+loss.py:15-24, 306-411). With ``lpips_params`` (``losses/lpips.py``) the
+reconstruction loss and metrics add LPIPS, as the reference does when its
+weights are present."""
 from __future__ import annotations
 
 import torch
 
 from ..ops.warp import frame_warp
+from . import lpips as lpips_mod
 from .flow import flow_sequence_loss, validity_mask
 from .ssim import ssim
-
-
-def _no_lpips(lpips_params) -> None:
-    if lpips_params is not None:
-        raise NotImplementedError("LPIPS is not ported: pass lpips_params=None")
 
 
 def psnr(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0) -> torch.Tensor:
@@ -24,21 +20,25 @@ def psnr(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0) -> tor
                        20.0 * torch.log10(data_range / torch.sqrt(mse)))
 
 
-def recon_evaluate(rec_img: torch.Tensor, target_img: torch.Tensor) -> dict:
-    """{'mse', 'psnr', 'ssim'} of NCHW images."""
-    return {"mse": torch.mean((rec_img - target_img) ** 2),
-            "psnr": psnr(rec_img, target_img),
-            "ssim": ssim(rec_img, target_img)}
-
+def recon_evaluate(rec_img: torch.Tensor, target_img: torch.Tensor,
+                   lpips_params=None) -> dict:
+    """{'mse', 'psnr', 'ssim'} of NCHW images, and 'lpips' with
+    ``lpips_params`` (ref: loss.py:316-328)."""
+    metrics = {"mse": torch.mean((rec_img - target_img) ** 2),
+               "psnr": psnr(rec_img, target_img),
+               "ssim": ssim(rec_img, target_img)}
+    if lpips_params is not None:
+        metrics["lpips"] = lpips_mod.lpips(lpips_params, rec_img, target_img, normalize=True)
+    return metrics
 
 
 def recon_loss(out, rec_img0, batch_target, cfg, lpips_params=None,
                is_loss_consis=True):
-    """``ReconLoss.forward`` (ref: loss.py:331-354): L1 + (1 - SSIM), plus
-    5x the ``valid``-masked L1 between ``out`` and ``rec_img0`` warped along
-    gt_flow where ``is_loss_consis`` (a bool, or a 0-dim tensor that gates
-    the term by a multiply). Returns (loss, metrics)."""
-    _no_lpips(lpips_params)
+    """``ReconLoss.forward`` (ref: loss.py:331-354): LPIPS (with
+    ``lpips_params``) + L1 + (1 - SSIM), plus 5x the ``valid``-masked L1
+    between ``out`` and ``rec_img0`` warped along gt_flow where
+    ``is_loss_consis`` (a bool, or a 0-dim tensor that gates the term by a
+    multiply). Returns (loss, metrics)."""
     gt = batch_target["gt_img1"]
     if isinstance(is_loss_consis, bool) and not is_loss_consis:
         consis = 0.0
@@ -49,8 +49,10 @@ def recon_loss(out, rec_img0, batch_target, cfg, lpips_params=None,
                                           device=consis.device)
     l1 = torch.mean(torch.abs(out - gt))
     ssim_loss = 1.0 - ssim(out, gt, data_range=1.0)
-    loss = l1 + ssim_loss + consis
-    return loss, {"L1": l1, "SSIM": ssim_loss, "loss_consistency": consis,
+    lp = (lpips_mod.lpips(lpips_params, out, gt, normalize=True)
+          if lpips_params is not None else 0.0)
+    loss = lp + l1 + ssim_loss + consis
+    return loss, {"LPIPS": lp, "L1": l1, "SSIM": ssim_loss, "loss_consistency": consis,
                   "loss_rec": loss - consis, "loss_rec_all": loss}
 
 
@@ -61,13 +63,13 @@ def flow_recon_loss(out, rec_img0, batch_flow, batch_target, cfg, loss_mode: str
     flow loss ('flow') or their sum ('both'). A scalar."""
     if loss_mode not in ("rec", "flow", "both"):
         raise ValueError(f"loss_mode {loss_mode!r} is not rec, flow or both")
-    _no_lpips(lpips_params)
     batch_target = dict(batch_target)
     batch_target["valid"] = validity_mask(batch_target["gt_img0"], batch_target["gt_img1"],
                                           batch_target["gt_flow"], cfg.warp_mode)
     loss = 0.0
     if loss_mode in ("rec", "both"):
-        loss = loss + recon_loss(out, rec_img0, batch_target, cfg, None, is_loss_consis)[0]
+        loss = loss + recon_loss(out, rec_img0, batch_target, cfg, lpips_params,
+                                 is_loss_consis)[0]
     if loss_mode in ("flow", "both"):
         if cfg.is_bi:
             batch_target["valid_bw"] = validity_mask(

@@ -70,6 +70,16 @@ class _Composite(nn.Module):
         return self.cista_net(events, warped_i, state)
 
 
+def _warp_flow(batch_flow: dict, batch_gt, fix_net_name):
+    """The flow the warps follow: ``batch_gt['gt_flow']`` where it is given,
+    else the flow net's final flow, detached when the flow net is frozen
+    (cista_flow_tpu/models/composite.py:201-205)."""
+    if batch_gt and "gt_flow" in batch_gt:
+        return batch_gt["gt_flow"]
+    flow = batch_flow["flow_final"]
+    return flow.detach() if fix_net_name == "flow" else flow
+
+
 class CistaEIFlow(_Composite):
     """cista-eiflow (ref: e2v/e2v_model.py DCEIFlowCistaNet): the flow comes
     from the events and the previous reconstruction. Module names match the
@@ -119,11 +129,7 @@ class CistaEIFlow(_Composite):
             batch_flow = self.event_flownet(
                 events, image1, iters=iters, collect_preds=collect_preds,
                 image2=batch_gt.get("gt_img1"), reversed_event_voxel=event_voxel_bw)
-        flow_final = batch_flow["flow_final"]
-        if fix_net_name == "flow":
-            flow_final = flow_final.detach()
-        if "gt_flow" in batch_gt:
-            flow_final = batch_gt["gt_flow"]
+        flow_final = _warp_flow(batch_flow, batch_gt, fix_net_name)
         half_flow = None
         if half is not None and "gt_flow" not in batch_gt and self.cfg.scale_factor == 0.5:
             half_flow = half.detach() if fix_net_name == "flow" else half
@@ -141,16 +147,21 @@ class CistaERAFT(_Composite):
         self.event_flownet = ERAFT(cfg.num_bins)
 
     def forward(self, events, rec_img0, state: CistaState, event_voxel_old,
-                iters=None, collect_preds: bool = False, batch_gt=None):
+                iters=None, collect_preds: bool = False, batch_gt=None,
+                fix_net_name=None):
         """One reconstruction step; ``event_voxel_old`` is the previous
         step's voxel (zeros at the start of a stream); the warps follow
         ``batch_gt['gt_flow']`` where it is given. Returns (rec, batch_flow,
-        new_state)."""
+        new_state). Training: with ``fix_net_name='flow'`` the predicted
+        flow reaches the warps detached; cnet's BatchNorm runs in train mode
+        exactly when this module trains and the flow net is not frozen
+        (cista_flow_tpu/models/composite.py:183-192)."""
         iters = iters if iters is not None else self.cfg.default_flow_iters()
+        self.event_flownet.train(self.training and fix_net_name != "flow")
         batch_flow = self.event_flownet(event_voxel_old, events, iters=iters,
                                         collect_preds=collect_preds)
-        flow_final = (batch_gt or {}).get("gt_flow", batch_flow["flow_final"])
-        rec, new_state = self.reconstruct(events, rec_img0, state, flow_final)
+        rec, new_state = self.reconstruct(
+            events, rec_img0, state, _warp_flow(batch_flow, batch_gt, fix_net_name))
         return rec, batch_flow, new_state
 
     def window_flows(self, voxel_seq, iters: int):
@@ -212,15 +223,17 @@ class CistaIDNet(_Composite):
         self.event_flownet = IDNet()
 
     def forward(self, events, rec_img0, state: CistaState, iters=None,
-                flow_init=None, collect_preds: bool = False, batch_gt=None):
+                flow_init=None, collect_preds: bool = False, batch_gt=None,
+                fix_net_name=None):
         """One reconstruction step; ``iters`` deblur iterations (default 1);
-        the warps follow ``batch_gt['gt_flow']`` where it is given. Returns
-        (rec, batch_flow, new_state)."""
+        the warps follow ``batch_gt['gt_flow']`` where it is given, and the
+        predicted flow reaches them detached under ``fix_net_name='flow'``.
+        Returns (rec, batch_flow, new_state)."""
         iters = iters if iters is not None else self.cfg.default_flow_iters()
         batch_flow = self.event_flownet(events, flow_init=flow_init, iters=iters,
                                         collect_preds=collect_preds)
         # the warps take an f32 flow; in bf16 the flow net's is bf16
-        flow_final = (batch_gt or {}).get("gt_flow", batch_flow["flow_final"].float())
+        flow_final = _warp_flow(batch_flow, batch_gt, fix_net_name).float()
         rec, new_state = self.reconstruct(events, rec_img0, state, flow_final)
         return rec, batch_flow, new_state
 
@@ -232,7 +245,9 @@ class CistaLSTCOnly(_Composite):
     through); ``batch_flow['flow_final']`` is that flow."""
 
     def forward(self, events, rec_img0, state: CistaState, iters=None,
-                collect_preds: bool = False, batch_gt=None):
+                collect_preds: bool = False, batch_gt=None, fix_net_name=None):
+        """One step; ``fix_net_name`` is taken for the trainer's sake (these
+        modes train the reconstructor alone, under None)."""
         flow = (batch_gt or {}).get("gt_flow")
         if flow is None:
             b, _, h, w = rec_img0.shape

@@ -65,6 +65,9 @@ class ERAFT(nn.Module):
                            device=fmap1.device)
         preds = []
         for _ in range(iters):
+            # each iteration's coordinates enter without a gradient, as RAFT
+            # trains (cista_flow_tpu/models/eraft.py:113)
+            coords1 = coords1.detach()
             cor = cuda_corr.lookup(pyr, coords1, convc1.weight, convc1.bias)
             net, mask, delta = ub(net, inp, cor, coords1 - coords0,
                                   corr_projected=True)

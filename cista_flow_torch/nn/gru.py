@@ -178,22 +178,24 @@ class BasicUpdateBlock(nn.Module):
 
 
 class LiteUpdateBlock(nn.Module):
-    """IDNet's LiteUpdateBlock with the next-step outputs (ref:
-    idn/update.py:47-64, ``num_outputs=2``): a ConvGRU, a flow head with
-    its convex-upsampling mask head, and a second pair for the next step's
-    flow. The mask logits are not scaled."""
+    """IDNet's LiteUpdateBlock (ref: idn/update.py:47-64): a ConvGRU, a flow
+    head with its convex-upsampling mask head and, with ``num_outputs=2``
+    (CISTA-Flow's), a second pair for the next step's flow. The mask logits
+    are not scaled."""
 
-    def __init__(self, hidden_dim=96, input_dim=64, downsample=8):
+    def __init__(self, hidden_dim=96, input_dim=64, downsample=8, num_outputs=2):
         super().__init__()
         mdim = downsample * downsample * 9
         self.gru = ConvGRU(hidden_dim, input_dim)
         self.flow_head = FlowHead(hidden_dim, hidden_dim)
         self.mask = MaskHead(hidden_dim, mdim)
-        self.flow_head2 = FlowHead(hidden_dim, hidden_dim)
-        self.mask2 = MaskHead(hidden_dim, mdim)
+        if num_outputs == 2:
+            self.flow_head2 = FlowHead(hidden_dim, hidden_dim)
+            self.mask2 = MaskHead(hidden_dim, mdim)
 
     def heads(self, net):
-        """(delta flow, mask logits) and the next step's pair, at 1/8
-        resolution."""
-        return ((self.flow_head(net), self.mask(net)),
-                (self.flow_head2(net), self.mask2(net)))
+        """(delta flow, mask logits) and the next step's pair (None without
+        the second head), at 1/8 resolution."""
+        second = ((self.flow_head2(net), self.mask2(net)) if hasattr(self, "flow_head2")
+                  else None)
+        return (self.flow_head(net), self.mask(net)), second

@@ -8,6 +8,8 @@ of the JAX dispatch (ops/conv.py there, pallas_conv.CHANNELS).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -45,23 +47,45 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     return torch.relu(y) if relu else y
 
 
+_STATS_FROZEN = 0          # > 0 inside ``frozen_bn_stats``
+
+
+@contextlib.contextmanager
+def frozen_bn_stats():
+    """Inside the block a train-mode ``batch_norm`` normalises with its
+    batch statistics but leaves the running statistics and
+    ``num_batches_tracked`` as they are: the recompute of a checkpointed
+    step (``remat``) passes through it. A process-wide count, not a
+    thread-local flag: autograd may recompute on its own thread."""
+    global _STATS_FROZEN
+    _STATS_FROZEN += 1
+    try:
+        yield
+    finally:
+        _STATS_FROZEN -= 1
+
+
 def batch_norm(x: torch.Tensor, bn: torch.nn.BatchNorm2d, eps: float = 1e-5,
                momentum: float = 0.1) -> torch.Tensor:
     """BatchNorm2d, in the mode of ``bn.training`` (cista_flow_tpu/ops/conv.py
     ``batch_norm``). Train: f32 batch statistics over (B, H, W), the biased
     variance to normalise, and ``bn``'s running statistics updated in place
-    with the unbiased one (momentum 0.1). Eval: the running statistics. The
-    statistics and the scale are cast to x's dtype, as the JAX package
-    casts them."""
+    with the unbiased one (momentum 0.1) and ``num_batches_tracked`` by one,
+    as torch's module counts them (not inside ``frozen_bn_stats``). Eval:
+    the running statistics. The statistics and the scale are cast to x's
+    dtype, as the JAX package casts them."""
     if bn.training:
         xf = at_least_f32(x)
         mean = xf.mean(dim=(0, 2, 3))
         var = (xf - mean[None, :, None, None]).square().mean(dim=(0, 2, 3))
         n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            bn.running_mean.copy_((1 - momentum) * bn.running_mean + momentum * mean)
-            bn.running_var.copy_((1 - momentum) * bn.running_var
-                                 + momentum * (var * (n / max(n - 1, 1))))
+        if not _STATS_FROZEN:
+            with torch.no_grad():
+                bn.running_mean.copy_((1 - momentum) * bn.running_mean + momentum * mean)
+                bn.running_var.copy_((1 - momentum) * bn.running_var
+                                     + momentum * (var * (n / max(n - 1, 1))))
+                if bn.num_batches_tracked is not None:
+                    bn.num_batches_tracked.add_(1)
     else:
         mean, var = bn.running_mean, bn.running_var
     inv = torch.rsqrt(var + eps) * bn.weight

@@ -15,7 +15,10 @@ Counterpart of cista_flow_tpu/parallel/train_step.py (ref: train.py:180-232):
   per optimizer step for the forward and the backward of the whole unroll
   (``parameters_as``); losses and flows stay f32, and the BatchNorm running
   statistics stay f32 buffers. f32 runs with cuDNN's TF32
-  off (``device.cudnn_fp32``).
+  off (``device.cudnn_fp32``);
+* every mode trains: each gets its inputs at every step (``_step_inputs``);
+  ``remat`` recomputes each step in the backward; ``lpips_params`` adds
+  LPIPS to the reconstruction loss.
 
 On the card every kernel of the step runs in forward (K1-K5), and each
 kernel's gradient is autograd of its plain version (``ops/autograd.py``).
@@ -25,10 +28,12 @@ from __future__ import annotations
 import contextlib
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DTYPES, cudnn_fp32
 from ..losses.recon import flow_recon_loss
 from ..models import composite
+from ..ops.conv import frozen_bn_stats
 
 SUBNETS = {"rec": "cista_net", "flow": "event_flownet"}   # fix_net_name -> module
 
@@ -99,39 +104,78 @@ def parameters_as(model: torch.nn.Module, dtype: torch.dtype):
             mod._parameters[name] = p
 
 
+def _step_inputs(cfg, seq: dict, s: int, dtype: torch.dtype, use_gt_flow: bool) -> dict:
+    """The composite's keyword inputs at unroll step ``s``, as the JAX train
+    step gives each mode its batch: the previous voxel for cista-eraft, the
+    reversed voxel for cista-eiflow where the batch has one, the GT flow to
+    the warps with ``use_gt_flow`` (cista-gtflow and cista-lstc train so),
+    gt_img1 for DCEIFlow's pseudo-feature loss."""
+    batch_gt = {"gt_img1": seq["gt_img1"][s]}
+    if use_gt_flow:
+        batch_gt["gt_flow"] = seq["gt_flow"][s]
+    kw = {"batch_gt": batch_gt}
+    if cfg.model_mode == "cista-eraft":
+        kw["event_voxel_old"] = seq["event_voxel_old"][s].to(dtype)
+    elif cfg.model_mode == "cista-eiflow":
+        bw = seq.get("event_voxel_bw")
+        kw["event_voxel_bw"] = None if bw is None else bw[s].to(dtype)
+    return kw
+
+
+def _remat_contexts():
+    """The forward runs as it is; the recompute leaves BatchNorm's running
+    statistics alone (they were updated once, in the forward)."""
+    return contextlib.nullcontext(), frozen_bn_stats()
+
+
 def unroll_loss(model, seq: dict, cfg, loss_mode: str, fix_net_name, use_gt_flow: bool,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32, lpips_params=None,
+                remat: bool = False) -> torch.Tensor:
     """The summed loss of one (T, B, ...) sequence batch through the
-    composite, stepped in ``dtype`` (the model's parameters read in it)."""
+    composite, stepped in ``dtype`` (the model's parameters read in it).
+    With ``remat`` each unroll step runs under non-reentrant
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward instead of kept (the JAX package's ``jax.checkpoint`` of the
+    scan body), and the recompute does not update BatchNorm's statistics
+    a second time. The backward must then run while the parameters read
+    in ``dtype`` (inside ``parameters_as``)."""
     events = seq["event_voxel"]
     t_len, batch = events.shape[:2]
     state = composite.zero_state(batch, cfg, dtype, events.device)
     rec = torch.zeros((batch, 1, *events.shape[3:]), dtype=dtype, device=events.device)
+    targets = [k for k in ("gt_img0", "gt_img1", "gt_flow", "gt_flow_bw") if k in seq]
+
+    def step(s, rec, state):
+        out, batch_flow, state = model(
+            events[s].to(dtype), rec, state, collect_preds=True, fix_net_name=fix_net_name,
+            **_step_inputs(cfg, seq, s, dtype, use_gt_flow))
+        loss = flow_recon_loss(out, rec, batch_flow, {k: seq[k][s] for k in targets}, cfg,
+                               loss_mode, lpips_params=lpips_params,
+                               is_loss_consis=loss_mode == "rec" and s >= 2)
+        return loss, out, state
+
     total = 0.0
     for s in range(t_len):
-        batch_gt = {"gt_img1": seq["gt_img1"][s]}
-        if use_gt_flow:
-            batch_gt["gt_flow"] = seq["gt_flow"][s]
-        bw = seq.get("event_voxel_bw")
-        out, batch_flow, state = model(
-            events[s].to(dtype), rec, state, collect_preds=True, batch_gt=batch_gt,
-            fix_net_name=fix_net_name, event_voxel_bw=None if bw is None else bw[s].to(dtype))
-        target = {k: seq[k][s] for k in ("gt_img0", "gt_img1", "gt_flow", "gt_flow_bw")
-                  if k in seq}
-        total = total + flow_recon_loss(out, rec, batch_flow, target, cfg, loss_mode,
-                                        is_loss_consis=loss_mode == "rec" and s >= 2)
-        rec = out
+        if remat:
+            loss, rec, state = checkpoint(step, s, rec, state, use_reentrant=False,
+                                          context_fn=_remat_contexts)
+        else:
+            loss, rec, state = step(s, rec, state)
+        total = total + loss
     return total
 
 
 def make_train_step(cfg, optimizer: torch.optim.Optimizer, loss_mode: str,
-                    fix_net_name: str | None, use_gt_flow: bool):
+                    fix_net_name: str | None, use_gt_flow: bool, lpips_params=None,
+                    remat: bool = False):
     """The train step of one phase: ``step(model, seq) -> loss`` (a 0-dim f32
     tensor on the model's device). ``seq``: dict of (T, B, C, H, W) f32
     tensors on that device, event_voxel, gt_img0, gt_img1, gt_flow
-    [+ event_voxel_bw, gt_flow_bw]. The model is put in train mode, its
+    [+ event_voxel_old (cista-eraft) | event_voxel_bw, gt_flow_bw
+    (cista-eiflow, bidirectional)]. The model is put in train mode, its
     frozen subnet's parameters stop requiring gradients, and the optimizer
-    takes one step."""
+    takes one step. ``lpips_params`` adds the perceptual term; ``remat``
+    recomputes each unroll step in the backward (``unroll_loss``)."""
     dtype = DTYPES[cfg.dtype]
 
     def step(model: torch.nn.Module, seq: dict) -> torch.Tensor:
@@ -144,8 +188,8 @@ def make_train_step(cfg, optimizer: torch.optim.Optimizer, loss_mode: str,
         with precision:
             with parameters_as(model, dtype):            # one cast per optimizer step
                 loss = unroll_loss(model, seq, cfg, loss_mode, fix_net_name, use_gt_flow,
-                                   dtype)
-            loss.backward()
+                                   dtype, lpips_params, remat)
+                loss.backward()
         optimizer_step(model, optimizer)
         return loss.detach()
 

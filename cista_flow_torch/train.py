@@ -1,25 +1,37 @@
 """The CISTA-Flow trainer on one card: three-phase schedule, BPTT over
-sequences.
+sequences, every model mode.
 
     python -m cista_flow_torch.train --model_mode cista-eiflow \
         --path_to_train_data DIR [--path_to_e2vflow CKPT] [--epochs N] ...
-        [--device cpu] [--dtype bfloat16]
+        [--remat] [--save_every_steps N] [--orbax_ckpt]
+        [--load_epoch_for_train E | -1] [--device cpu] [--dtype bfloat16]
 
 Counterpart of the JAX package's ``train.py`` (ref: train.py:27-269):
-* phase schedule (ref: train.py:116-129): epochs [0, flow_epoch) train the
-  flow net with the reconstructor frozen and the GT flow driving the warps;
-  [flow_epoch, +rec_epoch) train the reconstructor with the flow net frozen
-  (predicted flow); after that lr := 3e-5 and the two alternate every two
-  epochs;
-* Adam + StepLR(10, 0.9); a resume rescales the first lr by
-  0.9^floor(epoch/10) (the optimizer moments are not checkpointed, as in the
-  reference);
+* phase schedule (ref: train.py:116-129): for cista-eiflow, cista-eraft
+  and cista-idnet, epochs [0, flow_epoch) train the flow net with the
+  reconstructor frozen and the GT flow driving the warps; [flow_epoch,
+  +rec_epoch) train the reconstructor with the flow net frozen (predicted
+  flow); after that lr := 3e-5 and the two alternate every two epochs.
+  cista-lstc and cista-gtflow have no flow net: every epoch trains the
+  reconstructor on the GT flow, loss 'rec';
+* Adam + StepLR(10, 0.9); a resume from a ``.pth.tar`` epoch rescales the
+  first lr by 0.9^floor(epoch/10) and restarts Adam, as the reference does;
 * checkpoints ``{path_to_model}/{name}/{name}_{epoch}.pth.tar`` in the
   reference's ``{'epoch', 'state_dict'}`` layout at the reference's
-  schedule (ref: train.py:137-140).
-Only ``cista-eiflow`` is ported. Not ported: LPIPS (no weights exist), the
-orbax exact resume (``--load_epoch_for_train -1``), step-level saves,
-``remat`` and the data-parallel mesh.
+  schedule (ref: train.py:137-140);
+* the exact resume (``ckpt.py``, the port's counterpart of the JAX
+  package's orbax saves): ``--orbax_ckpt`` also writes the full state
+  (parameters, BatchNorm buffers, Adam's moments and step counts) at every
+  epoch save into ``{name}/full_state``, ``--save_every_steps N`` every N
+  optimizer steps into ``{name}/full_state_steps`` (the newest two kept),
+  and ``--load_epoch_for_train -1`` resumes from the newest: a step save
+  wins when its epoch is at least the last epoch save's, and that epoch
+  restarts from its first batch;
+* ``--remat`` recomputes each unroll step in the backward;
+* LPIPS joins the reconstruction loss when ``CISTA_LPIPS`` (or
+  ``CISTA_LPIPS_ALEX``, ``CISTA_LPIPS_VGG``) names a weights file.
+Not ported: the data-parallel mesh (a multi-card feature) and the
+TensorBoard writer.
 """
 from __future__ import annotations
 
@@ -31,22 +43,28 @@ import time
 import numpy as np
 import torch
 
-from . import weights
+from . import ckpt, weights
 from .config import Config
 from .data.train_loader import StackedSequenceLoader, TrainSequenceDataset
 from .device import resolve_device
+from .losses import lpips
 from .models import composite
 from .parallel import make_optimizer, make_train_step, set_lr, step_lr
+
+FLOW_MODES = ("cista-eiflow", "cista-eraft", "cista-idnet")
 
 
 def phase_for_epoch(cfgs, epoch: int):
     """(fix_net_name, loss_mode, use_gt_flow, lr_override) of ``epoch``
     (the JAX package's ``train.phase_for_epoch``). The phase-3 train-rec half
     runs loss 'rec' (consistency from step 2), its train-flow half 'both'
-    without the consistency term (ref: train.py:123-129, 210-217)."""
-    if cfgs.model_mode != "cista-eiflow":
-        raise ValueError(f"training {cfgs.model_mode!r} is not ported; only "
-                         "cista-eiflow is")
+    without the consistency term (ref: train.py:123-129, 210-217).
+    cista-lstc and cista-gtflow train the reconstructor alone on the GT
+    flow."""
+    if cfgs.model_mode not in FLOW_MODES + ("cista-lstc", "cista-gtflow"):
+        raise ValueError(f"unknown model_mode {cfgs.model_mode!r}")
+    if cfgs.model_mode not in FLOW_MODES:
+        return None, "rec", True, None
     if epoch < cfgs.flow_epoch:
         return "rec", "flow", True, None
     if epoch < cfgs.flow_epoch + cfgs.rec_epoch:
@@ -72,23 +90,27 @@ def is_save_epoch(cfgs, epoch: int) -> bool:
 
 
 class Trainer:
-    """Initialises the composite (from ``path_to_e2vflow``, from
-    ``path_to_e2v`` + ``path_to_flownet``, from a saved epoch, or at random
-    from ``seed``), the data and the optimizer; ``run`` trains."""
+    """Initialises the composite (from the newest full-state save with
+    ``load_epoch_for_train -1``, from a saved epoch, from
+    ``path_to_e2vflow``, from ``path_to_e2v`` + ``path_to_flownet``, or at
+    random from ``seed``), the data and the optimizer; ``run`` trains."""
 
     def __init__(self, cfgs: Config, device=None):
-        phase_for_epoch(cfgs, 0)              # refuses the modes not ported
-        if cfgs.load_epoch_for_train < 0:
-            raise NotImplementedError("the exact resume (load_epoch_for_train -1) "
-                                      "is not ported")
+        phase_for_epoch(cfgs, 0)              # refuses an unknown mode
         self.cfgs = cfgs
         self.device = resolve_device(device)
         self.model_name = model_name_from_cfg(cfgs)
         self.path_to_model = os.path.join(cfgs.path_to_model, self.model_name)
         os.makedirs(self.path_to_model, exist_ok=True)
+        self.epoch_dir = os.path.join(self.path_to_model, "full_state")
+        self.steps_dir = os.path.join(self.path_to_model, "full_state_steps")
 
         model = composite.init(cfgs, device="cpu")
-        if cfgs.load_epoch_for_train:
+        self.resume = None                    # (directory, step) of an exact resume
+        self.resume_global_step = 0
+        if cfgs.load_epoch_for_train == -1:
+            self.resume = self._resume_point()
+        elif cfgs.load_epoch_for_train:
             model.load_reference_state(weights.load_state_dict(os.path.join(
                 self.path_to_model,
                 f"{self.model_name}_{cfgs.load_epoch_for_train}.pth.tar")))
@@ -102,11 +124,15 @@ class Trainer:
                 model.cista_net.load_state_dict(
                     {k: torch.tensor(v) for k, v in sd.items()}, strict=True)
                 print(f"Load path_to_e2v: {cfgs.path_to_e2v}")
-            if cfgs.path_to_flownet:
+            if cfgs.path_to_flownet and cfgs.model_mode in FLOW_MODES:
+                # the flow net's own checkpoint, in the reference's key layout
+                # (fnet.*, cnet.*, update_block.*; IDNet fnet.*, update_net.*)
                 sd = weights.load_state_dict(cfgs.path_to_flownet)
                 model.event_flownet.load_state_dict(
                     {k: torch.tensor(v) for k, v in sd.items()}, strict=True)
                 print(f"Load path_to_flownet: {cfgs.path_to_flownet}")
+        if self.resume is not None:
+            ckpt.restore_checkpoint(*self.resume, model=model)
         self.model = model.to(self.device)
 
         ds = TrainSequenceDataset(
@@ -117,14 +143,48 @@ class Trainer:
         self.base_lr = cfgs.lr
         lr = cfgs.lr * (0.9 ** np.floor(cfgs.load_epoch_for_train / 10.0))
         self.optimizer = make_optimizer(self.model, float(lr))
-        print("LPIPS is not ported; training without the perceptual term.")
+        if self.resume is not None:
+            ckpt.restore_checkpoint(*self.resume, optimizer=self.optimizer)
+            print(f"Resumed exactly from {os.path.basename(self.resume[0])} "
+                  f"step {self.resume[1]}")
+
+        # the reference's default LPIPS net is 'alex' (loss.py:307)
+        self.lpips_params = lpips.params_from_env()
+        if self.lpips_params is None:
+            print("LPIPS weights not provided (set CISTA_LPIPS=<converted .npz>; see "
+                  "convert_lpips.py); training without the perceptual term.")
+        else:
+            self.lpips_params = lpips.to(self.lpips_params, self.device)
         self._steps = {}
+
+    def _resume_point(self) -> tuple:
+        """(directory, step) of the newest full-state save, as the JAX
+        trainer chooses it (train.py:64-87): a step save when its epoch is
+        at least the last epoch save's (that epoch restarts from its first
+        batch), else the last epoch save. Sets ``load_epoch_for_train`` to
+        the epoch the run starts at."""
+        cfgs = self.cfgs
+        e_step = ckpt.latest_step(self.epoch_dir)
+        s_step = ckpt.latest_step(self.steps_dir)
+        if s_step is not None:
+            meta = ckpt.read_meta(self.steps_dir, s_step)
+            if e_step is None or meta.get("epoch", -1) >= e_step:
+                self.resume_global_step = meta.get("global_step", 0)
+                cfgs.load_epoch_for_train = meta.get("epoch", 0)
+                return self.steps_dir, s_step
+        if e_step is None:
+            raise FileNotFoundError(f"no full-state checkpoint in {self.epoch_dir} or "
+                                    f"{self.steps_dir}")
+        cfgs.load_epoch_for_train = e_step
+        return self.epoch_dir, e_step
 
     def step_fn(self, fix_net_name, loss_mode, use_gt_flow):
         key = (fix_net_name, loss_mode, use_gt_flow)
         if key not in self._steps:
             self._steps[key] = make_train_step(self.cfgs, self.optimizer, loss_mode,
-                                               fix_net_name, use_gt_flow)
+                                               fix_net_name, use_gt_flow,
+                                               lpips_params=self.lpips_params,
+                                               remat=self.cfgs.remat)
         return self._steps[key]
 
     def to_device(self, batch: dict) -> dict:
@@ -132,6 +192,7 @@ class Trainer:
 
     def run(self):
         cfgs = self.cfgs
+        global_step = self.resume_global_step
         for epoch in range(cfgs.load_epoch_for_train, cfgs.epochs):
             fix, loss_mode, use_gt_flow, lr_override = phase_for_epoch(cfgs, epoch)
             lr = lr_override if lr_override is not None else step_lr(self.base_lr, epoch)
@@ -143,6 +204,12 @@ class Trainer:
             t0 = time.perf_counter()
             for batch_idx, seq in enumerate(self.loader):
                 loss = step(self.model, self.to_device(seq))
+                global_step += 1
+                if cfgs.save_every_steps > 0 and global_step % cfgs.save_every_steps == 0:
+                    # a mid-epoch save: a resume restarts this epoch from it
+                    ckpt.save_checkpoint(self.steps_dir, global_step, self.model,
+                                         self.optimizer, max_to_keep=2,
+                                         meta={"epoch": epoch, "global_step": global_step})
                 if batch_idx % 50 == 0:
                     print(f"Train Epoch: {epoch + 1} [{batch_idx * cfgs.batch_size}/"
                           f"{n * cfgs.batch_size} ({100.0 * batch_idx / max(n, 1):.0f}%)]"
@@ -152,12 +219,15 @@ class Trainer:
                                     f"{self.model_name}_{epoch + 1}.pth.tar")
                 weights.save_checkpoint(path, self.model, epoch)
                 print(f"saved {path}")
+                if cfgs.orbax_ckpt:
+                    ckpt.save_checkpoint(self.epoch_dir, epoch + 1, self.model,
+                                         self.optimizer)
             print(f"epoch{epoch + 1}: {n} batches in {time.perf_counter() - t0:.2f} s "
                   "(host clock)")
 
 
 def parse_args(argv=None) -> tuple[Config, str]:
-    ap = argparse.ArgumentParser(description="train the PyTorch port (cista-eiflow)")
+    ap = argparse.ArgumentParser(description="train the PyTorch port")
     ap.add_argument("--image_dim", nargs=2, default=[180, 240], type=int)
     ap.add_argument("--path_to_model", default="models")
     ap.add_argument("--model_name", default="")
@@ -183,6 +253,14 @@ def parse_args(argv=None) -> tuple[Config, str]:
     ap.add_argument("--num_events", default=15000, type=int)
     ap.add_argument("--flow_iters", default=None, type=int)
     ap.add_argument("--seed", default=1234, type=int)
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each unroll step in the backward")
+    ap.add_argument("--save_every_steps", default=0, type=int,
+                    help="> 0: a full-state save every N optimizer steps")
+    ap.add_argument("--orbax_ckpt", action="store_true",
+                    help="also write the full state (parameters, BatchNorm buffers, "
+                         "Adam) at every epoch save, as torch.save files under "
+                         "{name}/full_state, for --load_epoch_for_train -1")
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = vars(ap.parse_args(argv))

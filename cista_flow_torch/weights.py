@@ -126,17 +126,22 @@ def _lite_encoder(out, prefix, p):
 
 def _idnet(out, pre, f):
     """IDNet's tree (cista_flow_tpu/ckpt/torch_import.py idnet_params,
-    backwards): ``fnet.*`` and ``update_net.*``."""
+    backwards): ``fnet.*``, ``update_net.*`` (the second head pair where the
+    tree has it) and the context encoder ``cnet.*`` where it has one."""
     _lite_encoder(out, pre + "fnet", f["fnet"])
+    if "cnet" in f:
+        _lite_encoder(out, pre + "cnet", f["cnet"])
     u = f["update"]
     for name in ("convz", "convr", "convq"):
         _conv(out, f"{pre}update_net.gru.{name}", u["gru"][name])
     for head in ("flow_head", "flow_head2"):
         for name in ("conv1", "conv2"):
-            _conv(out, f"{pre}update_net.{head}.{name}", u[head][name])
+            if head in u:
+                _conv(out, f"{pre}update_net.{head}.{name}", u[head][name])
     for head in ("mask", "mask2"):
-        _conv(out, f"{pre}update_net.{head}.0", u[head]["conv1"])
-        _conv(out, f"{pre}update_net.{head}.2", u[head]["conv2"])
+        if head in u:
+            _conv(out, f"{pre}update_net.{head}.0", u[head]["conv1"])
+            _conv(out, f"{pre}update_net.{head}.2", u[head]["conv2"])
 
 
 def from_jax(params_np: dict, model_state_np: dict) -> dict:
@@ -144,8 +149,8 @@ def from_jax(params_np: dict, model_state_np: dict) -> dict:
     arrays) in any model mode -> the reference key layout (``cista_net.*``,
     ``event_flownet.*``), with the ISTA block under ``lista_blocks.0``. The
     flow tree tells the modes apart: cista-lstc and cista-gtflow have none
-    (``params['flow'] == {}``), IDNet has no context encoder, DCEIFlow has
-    an event encoder, E-RAFT a mask head."""
+    (``params['flow'] == {}``), IDNet's update block is a ConvGRU,
+    DCEIFlow has an event encoder, E-RAFT a mask head."""
     out = {}
     c = params_np["cista"]
     pre = "cista_net."
@@ -165,7 +170,7 @@ def from_jax(params_np: dict, model_state_np: dict) -> dict:
     pre = "event_flownet."
     if not f:                            # cista-lstc, cista-gtflow
         return out
-    if "cnet" not in f:
+    if "convz" in f["update"]["gru"]:    # IDNet: a ConvGRU, no SepConvGRU
         _idnet(out, pre, f)
         return out
     u = f["update"]

@@ -57,7 +57,10 @@ def np_tree(t):
 
 @pytest.mark.parametrize("shape", [(2, 6, 5, 4), (3, 4, 7, 16)])
 def test_batch_norm_train_matches_jax(shape):
-    """Output and the updated running statistics, to 1e-6 relative."""
+    """Output and the updated running statistics, to 1e-6 relative;
+    ``num_batches_tracked`` counts the update, as torch's module does; inside
+    ``frozen_bn_stats`` (remat's recompute) the output is the same and the
+    statistics and the count stay."""
     rng = np.random.default_rng(sum(shape))
     b, h, w, c = shape
     x = (3.0 * rng.standard_normal(shape) + 1.0).astype(np.float32)
@@ -78,6 +81,12 @@ def test_batch_norm_train_matches_jax(shape):
     np.testing.assert_allclose(nhwc(out), ref, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(bn.running_mean.numpy(), ref_state["mean"], rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(bn.running_var.numpy(), ref_state["var"], rtol=1e-6, atol=1e-7)
+    assert int(bn.num_batches_tracked) == 1
+    stats = [t.clone() for t in bn.buffers()]
+    with TC.frozen_bn_stats():
+        again = TC.batch_norm(nchw(x), bn)
+    assert torch.equal(again, out)
+    assert all(torch.equal(a, b) for a, b in zip(bn.buffers(), stats))
     bn.eval()                                  # eval mode leaves the statistics alone
     before = bn.running_var.clone()
     TC.batch_norm(nchw(x), bn)
@@ -258,15 +267,20 @@ def test_half_flow_matches_the_composed_route():
 
 @pytest.mark.parametrize("flow_epoch,rec_epoch", [(1, 1), (2, 3), (0, 4)])
 def test_phase_for_epoch_matches_jax(flow_epoch, rec_epoch):
+    """The schedule of every mode the JAX trainer trains (the three flow
+    composites' three phases; cista-lstc and cista-gtflow on the GT flow)
+    equals ``train.phase_for_epoch`` of the JAX package; an unknown mode is
+    refused."""
     sys.path.insert(0, str(REPO))
     import train as jtrain
     from cista_flow_torch import train as ttrain
-    kw = dict(model_mode="cista-eiflow", flow_epoch=flow_epoch, rec_epoch=rec_epoch)
-    for epoch in range(13):
-        assert ttrain.phase_for_epoch(Config(**kw), epoch) == \
-            jtrain.phase_for_epoch(JConfig(**kw), epoch)
-    with pytest.raises(ValueError, match="not ported"):
-        ttrain.phase_for_epoch(Config(model_mode="cista-eraft"), 0)
+    for mode in ("cista-eiflow", "cista-eraft", "cista-idnet", "cista-lstc", "cista-gtflow"):
+        kw = dict(model_mode=mode, flow_epoch=flow_epoch, rec_epoch=rec_epoch)
+        for epoch in range(13):
+            assert ttrain.phase_for_epoch(Config(**kw), epoch) == \
+                jtrain.phase_for_epoch(JConfig(**kw), epoch)
+    with pytest.raises(ValueError, match="unknown model_mode"):
+        ttrain.phase_for_epoch(Config(model_mode="cista-raft"), 0)
 
 
 class _Two(torch.nn.Module):
@@ -337,7 +351,53 @@ def test_optimizer_matches_adam_per_subtree():
 
 # ----------------------------- the trainer ----------------------------------
 
-def test_train_cli_runs_every_phase_and_writes_reference_checkpoints(tmp_path, capsys):
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for a tiny CPU run: the test runner's workers
+    share the machine's cores, and torch's thread pools then wait on one
+    another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("mode", ["cista-eraft", "cista-idnet", "cista-gtflow", "cista-lstc"])
+def test_train_cli_trains_every_mode(tmp_path, capsys, mode, one_torch_thread):
+    """``python -m cista_flow_torch.train --device cpu --model_mode M`` for
+    every mode but cista-eiflow (the test below): three epochs (phase 1,
+    phase 2, phase 3's flow half for the flow composites; the GT-flow
+    reconstructor for the others) with ``--remat``, ``--save_every_steps``
+    and ``--orbax_ckpt``; the reference-layout checkpoints of epochs 1 and
+    2, each loaded strictly by the port and through the JAX importer, whose
+    export gives back its key set; the full-state saves of both kinds."""
+    from cista_flow_torch import ckpt, train
+    data = tmp_path / "data"
+    write_train_dataset(str(data), 2, 4, H, W, seed=1)
+    assert train.main(["--device", "cpu", "--model_mode", mode, "--path_to_train_data",
+                       str(data), "--path_to_model", str(tmp_path / "models"), "--image_dim",
+                       str(H), str(W), "-c", "16", "-d", "2", "--flow_iters", "1", "-s", "3",
+                       "--batch_size", "2", "--flow_epoch", "1", "--rec_epoch", "1",
+                       "--epochs", "3", "--remat", "--save_every_steps", "2",
+                       "--orbax_ckpt"]) == 0
+    assert capsys.readouterr().out.count("Train Epoch:") == 3
+    name = f"{mode}_b5_d2_c16"
+    root = tmp_path / "models" / name
+    assert sorted(f for f in os.listdir(root) if f.endswith(".pth.tar")) == \
+        [f"{name}_{e}.pth.tar" for e in (1, 2)]
+    assert ckpt.steps(str(root / "full_state")) == [1, 2]
+    assert ckpt.steps(str(root / "full_state_steps")) == [2]
+    for e in (1, 2):
+        path = str(root / f"{name}_{e}.pth.tar")
+        model = composite.init(Config(**{**SMALL, "model_mode": mode}), device="cpu")
+        model.load_reference_state(weights.load_state_dict(path))
+        jp, js = ti.composite_params(ti.load_state_dict(path), mode)
+        assert set(torch.load(path, map_location="cpu", weights_only=True)["state_dict"]) \
+            == set(ti.composite_export(jp, js, mode, depth=2))
+
+
+def test_train_cli_runs_every_phase_and_writes_reference_checkpoints(tmp_path, capsys,
+                                                                     one_torch_thread):
     """``python -m cista_flow_torch.train --device cpu`` (its ``main``, in
     this process) on a tiny simulated set over every phase (flow_epoch 1,
     rec_epoch 1, epochs 5: phase 1, phase 2, then both halves of phase 3)

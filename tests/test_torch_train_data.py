@@ -60,7 +60,8 @@ def test_write_train_dataset_matches_jax(datasets):
 
 
 def _cfgs(root, **kw):
-    kw = dict(image_dim=(H, W), path_to_train_data=root, model_mode="cista-eiflow", **kw)
+    kw = {"image_dim": (H, W), "path_to_train_data": root, "model_mode": "cista-eiflow",
+          **kw}
     return JConfig(**kw), Config(**kw)
 
 
@@ -73,7 +74,8 @@ CASES = {"by_video": dict(len_sequence=3),
          "by_event_count": dict(len_sequence=0, num_events=2500),
          "bi_reversed": dict(len_sequence=2, is_bi=True, is_reverse_events=True),
          "forward_flow_backward_warp": dict(len_sequence=3, is_forward_flow=True,
-                                            warp_mode="backward")}
+                                            warp_mode="backward"),
+         "eraft_voxel_old": dict(len_sequence=3, model_mode="cista-eraft")}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -109,8 +111,25 @@ def test_loader_matches_jax(datasets, monkeypatch, case):
             np.testing.assert_array_equal(t[k], _nchw(j[k]))
 
 
-def test_eraft_training_data_is_refused(datasets):
-    _, tcfg = _cfgs(os.path.dirname(datasets[1]), len_sequence=3)
-    tcfg.model_mode = "cista-eraft"
-    with pytest.raises(NotImplementedError, match="eraft"):
-        TTL.TrainSequenceDataset(datasets[1], tcfg)
+def test_eraft_training_data_is_refused(datasets, monkeypatch):
+    """Once refused, cista-eraft's training data now loads: each step's
+    ``event_voxel_old`` is zeros at a video's first frame (the first line,
+    or an events file whose frame index is 0) and the previous line's
+    window voxelized elsewhere, bit for bit the JAX loader's
+    (cista_flow_tpu/data/train_loader.py:148-157)."""
+    monkeypatch.setattr(JV, "_USE_NATIVE", False)
+    idx = datasets[1]
+    jcfg, tcfg = _cfgs(os.path.dirname(idx), len_sequence=3, model_mode="cista-eraft")
+    jds, tds = JTL.TrainSequenceDataset(idx, jcfg), TTL.TrainSequenceDataset(idx, tcfg)
+    firsts = 0
+    for line in range(len(tds.event_paths)):
+        (td, _), (jd, _) = tds.get_step(line), jds.get_step(line)
+        np.testing.assert_array_equal(td["event_voxel_old"], jd["event_voxel_old"])
+        if tds.event_paths[line].endswith("_000000.npz"):
+            firsts += 1
+            assert not td["event_voxel_old"].any()
+        else:
+            np.testing.assert_array_equal(td["event_voxel_old"],
+                                          tds.get_step(line - 1)[0]["event_voxel"])
+            assert td["event_voxel_old"].any()
+    assert firsts == VIDEOS
