@@ -101,9 +101,31 @@ Phases (any failure raises and the exit code is non-zero):
     ``train.Trainer`` against an uninterrupted run; a reduced
     ``sim_quality`` (cista-gtflow) whose trained net must beat the untrained
     one on PSNR.
-    ``--train-only`` runs the build, the kernel checks and phases 9 and 10.
+11. flow-net pretraining (``flow_pretraining``): (a) one f32
+    ``pretrain_flow.make_train_step`` step on the card against the CPU at
+    64x96, batch 2, for DCEIFlow (bidirectional), E-RAFT and RAFT (loss to
+    1e-6 relative, ``leaf_report``, launches per ``pretrain_launches``), and
+    one ``--opt raft`` step with the clip set below the gradient's norm (the
+    clipped gradients against the CPU's, their norm the clip, the update
+    AdamW's first from the clipped gradient at the schedule's rate);
+    (b) bf16 steps at full width (``PRETRAIN_BF16``: DCEIFlow and E-RAFT
+    at 180x240, batch 8, 6 and 12 iterations; RAFT at 384x512, batch 10,
+    12 iterations, on seeded RGB-like data): device ms, the kernel time of
+    a traced step split into forward, backward and optimizer, busy share,
+    peak memory, launches; (c) run with the kernel checks of phase 3: K1,
+    K2, K4 and K5 at the pretraining shapes against their plain versions
+    and timed, and K3a and K4s with gradients on the card in f32 and bf16;
+    (d) a reduced ``sim_flow_quality`` (``FLOW_SMOKE``) whose trained EPE
+    must be below the untrained one's, its checkpoint then loaded through
+    ``--path_to_flownet`` into a one-epoch ``sim_quality`` of cista-eiflow.
+    ``--train-only`` runs the build, the kernel checks and phases 9 to 11;
+    ``--pretrain-only`` the build, (c) and phase 11. ``--grad-sources``
+    (not part of the smoke) builds and then compares the card's f32
+    pretraining gradients and the CPU's with an f64 evaluation under
+    settings that each take one suspect out (``grad_sources``).
 Each phase prints its time. The last lines are the ``kernels`` JSON (K1,
-K2, K4 and K4s with a row for each timed shape under ``shapes``), the
+K2, K4 and K4s with a row for each timed shape under ``shapes``, K1, K2,
+K4 and K5 also at the pretraining shapes), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -187,8 +209,9 @@ def main(argv) -> int:
         print("chip_smoke: cista_flow_torch/ not found beside this script",
               file=sys.stderr)
         return 2
-    if argv not in ([], ["--kernels-only"], ["--train-only"]):
-        print("usage: chip_smoke.py [--kernels-only | --train-only]", file=sys.stderr)
+    modes = ("--kernels-only", "--train-only", "--pretrain-only", "--grad-sources")
+    if argv not in ([], *([m] for m in modes)):
+        print(f"usage: chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
     from cista_flow_torch.device import cudnn_fp32
@@ -214,31 +237,45 @@ def main(argv) -> int:
     print(f"build: {secs:.1f} s for {len(sources)} sources, {len(counters)} kernels")
     for k in sources:
         print(f"  ptxas {k.name}: {ptxas_summary(k.build_log)}")
+    if argv == ["--grad-sources"]:
+        grad_sources(torch, repo)
+        return 0
 
     # ---- 3. kernels against their plain versions --------------------------
     # (the f32 plain versions are cuDNN convs: held in full f32 for the phase)
-    with cudnn_fp32():
-        checks = kernel_checks(torch)
+    checks = {}
+    if argv != ["--pretrain-only"]:
+        with cudnn_fp32():
+            checks = kernel_checks(torch)
+    # phase 11 (c): the kernels at the pretraining shapes, K3a and K4s with gradients
+    for key, rows in kernels_at_pretrain_shapes(torch).items():
+        checks.setdefault(key, {}).setdefault("shapes", []).extend(rows)
     torch.cuda.synchronize()
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     if argv == ["--kernels-only"]:
         return 0
 
-    # ---- 4.-9. the main paths, at the process's own TF32 flags -----------
+    # ---- 4.-11. the main paths, at the process's own TF32 flags ----------
     launches = {k: 0 for k in counters}
     phases = (flagship_path, eraft_path, variant_windows, f32_at_default_flags,
-              gate_replay, serving_clis, idnet_path, long_chunks, training_path, train_modes)
-    for phase in (phases[-2:] if argv == ["--train-only"] else phases):
+              gate_replay, serving_clis, idnet_path, long_chunks, training_path, train_modes,
+              flow_pretraining)
+    if argv:
+        phases = phases[-3:] if argv == ["--train-only"] else phases[-1:]
+    for phase in phases:
         t_phase = time.perf_counter()
         for key, n in phase(torch, repo, counters).items():
             launches[key] += n
         now = time.perf_counter()
         print(f"{phase.__name__}: {now - t_phase:.1f} s, done at {now - t_start:.1f} s")
     idle = [k for k, n in launches.items() if n == 0]
-    if argv == ["--train-only"]:
-        idle = [k for k in ("K1", "K2", "K3", "K4", "K5") if launches[k] == 0]
+    if argv:
+        path = ("K1", "K2", "K4", "K5") + (("K3",) if argv == ["--train-only"] else ())
+        idle = [k for k in path if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")
+    if argv == ["--pretrain-only"]:
+        return 0
 
     rows = []
     for key, (name, source, replaces) in KERNELS.items():
@@ -417,7 +454,7 @@ def window_entries(coords, sizes, radius: int = 4) -> int:
     return total
 
 
-def k1_checks(torch, randn, dtype) -> dict:
+def k1_checks(torch, randn, dtype, shapes=None) -> dict:
     """K1 at ``CORR_SHAPES`` (batch 8, the cista-eraft window's 98,304
     samples, a 48x48 frame at batch 3 whose last level is empty), with
     coordinates far outside the levels and ones whose per-offset floor
@@ -429,7 +466,8 @@ def k1_checks(torch, randn, dtype) -> dict:
     at the same points and differ by summation order alone: one bf16
     rounding step of the output (2 half-steps at its largest magnitude).
     Then once more after an in-place update of convc1's weight. Times:
-    with and without convc1 at the first two shapes."""
+    with and without convc1 at the first two shapes. ``shapes`` replaces
+    ``CORR_SHAPES`` (each then timed)."""
     from cista_flow_torch.ops import cuda_corr
     from cista_flow_torch.ops.corr import CorrPyramid, coords_grid
     from cista_flow_torch.profile_kernels import CORR_SHAPES
@@ -438,7 +476,7 @@ def k1_checks(torch, randn, dtype) -> dict:
     dev = torch.device("cuda")
     es = torch.tensor([], dtype=dt).element_size()
     rows = []
-    for b, h1, w1 in CORR_SHAPES:
+    for b, h1, w1 in shapes or CORR_SHAPES:
         n = b * h1 * w1
         sizes = tuple((h1 >> lvl, w1 >> lvl) for lvl in range(4))
         levels = tuple(randn(n, hl, wl).to(dt) for hl, wl in sizes)
@@ -1496,7 +1534,7 @@ def train_batch(torch, repo: Path, t_len: int, batch: int, device,
 
 
 def leaf_report(name, got: dict, ref: dict, tol: float, flow_trains: bool,
-                mode: str = "cista-eiflow") -> None:
+                mode: str = "cista-eiflow", exact: dict | None = None) -> None:
     """Every gradient leaf of ``got`` against ``ref`` at ``tol`` of the
     leaf's largest magnitude, with two kinds of exception, each held to a
     relative L2 error instead and printed: the tied ISTA block, whose
@@ -1509,7 +1547,11 @@ def leaf_report(name, got: dict, ref: dict, tol: float, flow_trains: bool,
     cancel (see tests/test_torch_train_step.py; cista-eraft has fnet and
     cnet). A bias that feeds a normalisation (true gradient 0) is held to
     1e-5 of the step's largest gradient. IDNet's and the GT-flow modes'
-    leaves have no norms and take neither exception but the ISTA block's."""
+    leaves have no norms and take neither exception but the ISTA block's.
+    ``exact`` (phase 11): an f64 evaluation of the same gradients; a leaf
+    beyond its limit then passes where ``got`` is no farther from it than
+    twice ``ref``'s distance by relative L2 (``ref`` itself may be the
+    farther one), and is printed."""
     import re
     pre_norm = re.compile(r"event_flownet\.(fnet|enet|cnet)\.(conv1|layer\d\.\d\."
                           r"(conv1|conv2|downsample\.0))\.bias")
@@ -1537,6 +1579,13 @@ def leaf_report(name, got: dict, ref: dict, tol: float, flow_trains: bool,
         else:
             limit, err = tol, ratio
         rows.append((err / limit, k, ratio, l2))
+        if err > limit and exact is not None:
+            x = exact[k]
+            d_got, d_ref = (float((t.double() - x).norm() / x.norm()) for t in (g, r))
+            print(f"    {k}: beyond its limit; against f64 {d_got:.3e} (the reference "
+                  f"{d_ref:.3e})")
+            if d_got <= 2 * d_ref:
+                continue
         if err > limit:
             bad.append(k)
     rows.sort(reverse=True)
@@ -2138,6 +2187,599 @@ def train_modes(torch, repo: Path, counters: dict) -> dict:
     total = {k: 0 for k in counters}
     train_batch(torch, repo, TRAIN_T, TRAIN_BATCH, "cpu")       # writes the set
     for part in (modes_against_cpu, modes_bf16, resume_round_trip, sim_quality_smoke):
+        t0 = time.perf_counter()
+        for key, n in part(torch, repo, counters).items():
+            total[key] += n
+        print(f"  {part.__name__}: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# phase 11: flow-net pretraining. (arch, GRU iterations, frame, batch) of the
+# bf16 steps at full width: sim_flow_quality's defaults for DCEIFlow and
+# E-RAFT (180x240, batch 8); for RAFT the upstream chairs stage's batch 10
+# at 384x512, the /32 crop nearest its 368x496, which make_train_step refuses
+# (RAFT pads to /8, the sequence loss its targets to /32)
+PRETRAIN_BF16 = (("dceiflow", 6, (H, W), 8), ("eraft", 12, (H, W), 8),
+                 ("raft", 12, (384, 512), 10))
+PRETRAIN_SMALL = (64, 96)        # the card-against-CPU steps: /32 for RAFT's loss
+PRETRAIN_LR = 2e-4
+# a flow-net bias whose conv feeds a normalisation: its true gradient is 0
+FLOW_PRE_NORM = re.compile(r"(fnet|enet|cnet)\.(conv1|layer\d\.\d\.(conv1|conv2|downsample\.0))"
+                           r"\.bias")
+RAFT_PYRAMID = (10, 48, 64)      # K1: RAFT's 1/8 grid of 384x512 at batch 10
+RAFT_NORM_SHAPES = ((20, 64, 192, 256), (20, 96, 96, 128), (20, 128, 48, 64))   # fnet on 2B
+RAFT_CONV_SHAPES = ((20, 64, 192, 256), (20, 128, 48, 64))
+# K2: the sequence loss's photometric warp of the first frame, at RAFT's
+# crop and at DCEIFlow's and E-RAFT's 180x240 padded to 192x256
+PRETRAIN_WARP_SHAPES = ((10, 1, 384, 512), (8, 1, 192, 256))
+# 24 videos x 4 epochs (120 steps): 8 x 3 left the held-out EPE above the
+# untrained net's on the card (3.125 -> 4.203 with torch's default init)
+FLOW_SMOKE = ["--n_videos", "24", "--n_frames", "11", "--eval_videos", "2", "--epochs", "4",
+              "--opt", "raft"]
+FLOWNET_SMOKE = ["--model_mode", "cista-eiflow", "--n_videos", "4", "--n_frames", "11",
+                 "--eval_frames", "12", "--epochs", "1", "--batch_size", "4",
+                 "--len_sequence", "10"]
+
+
+def pretrain_launches(arch: str, iters: int, is_bi: bool = False) -> dict:
+    """Kernel launches of one pretraining step (forward only: each kernel's
+    gradient is autograd of its plain version). DCEIFlow: K1 per GRU
+    iteration, K2 for one photometric warp per flow prediction, fnet's norms
+    (one call over the frame pair) and enet's, K5 for the three encoders'
+    square convs; with ``is_bi`` the backward direction adds the GRU
+    iterations, their warps, enet on the reversed voxel and cnet on the
+    second frame. E-RAFT and RAFT: K1 and K2 per iteration, fnet's norms
+    (one call over both inputs), K5 for fnet's and cnet's square convs."""
+    if arch == "dceiflow":
+        n = 2 if is_bi else 1
+        return {"K1": n * iters, "K2": n * iters, "K4": (1 + n) * NORMS,
+                "K5": (1 + 2 * n) * SQUARE_CONVS}
+    return {"K1": iters, "K2": iters, "K4": NORMS, "K5": 2 * SQUARE_CONVS}
+
+
+def pretrain_batch(torch, repo: Path, arch: str, hw, batch: int, device, items=None,
+                   bi: bool = False) -> dict:
+    """A pretraining batch of NCHW f32 tensors on ``device``. DCEIFlow and
+    E-RAFT: ``SimFlowPairs`` of a simulated set at ``hw`` (written once
+    into the ignored ``build/pretrain_data``; items 1.. of a video, whose
+    previous voxel is not zero), with ``bi`` also the reversed voxel and
+    the backward flow; RAFT given ``items`` reads those frames as RGB (a
+    scale per channel). RAFT at full width: a seeded RGB-like pair (a
+    smooth texture per channel, the second frame the first sampled along a
+    seeded smooth flow) and that flow as the target, the chairs stage
+    having no data in the repo."""
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.data import sim
+    from cista_flow_torch.ops.warp import sample_pixel_coords
+
+    h, w = hw
+    if arch == "raft" and items is None:
+        rng = np.random.default_rng(11)
+        img0 = np.stack([np.stack([sim.smooth_texture(rng, h, w) for _ in range(3)])
+                         for _ in range(batch)]).astype(np.float32)
+        flow = np.stack([np.stack([8.0 * (sim.smooth_texture(rng, h, w) - 0.5)
+                                   for _ in range(2)]) for _ in range(batch)]).astype(np.float32)
+        t0, tf = torch.from_numpy(img0), torch.from_numpy(flow)
+        xx = torch.arange(w, dtype=torch.float32)[None, None, :]
+        yy = torch.arange(h, dtype=torch.float32)[None, :, None]
+        img1 = sample_pixel_coords(t0, xx - tf[:, 0], yy - tf[:, 1], "reflection")
+        out = {"gt_img0": t0, "gt_img1": img1, "gt_flow": tf,
+               "valid": torch.ones((batch, 1, h, w))}
+        return {k: v.to(device) for k, v in out.items()}
+    data = repo / "build" / "pretrain_data" / f"{h}x{w}"
+    if not (data / "train_e2v_estflow.txt").exists():
+        sim.write_train_dataset(str(data), 2, 11, h, w, seed=0, speed_range=(15.0, 110.0),
+                                omega_range=(0.05, 0.5))
+    cfg = Config(image_dim=(h, w), path_to_train_data=str(data), len_sequence=1,
+                 model_mode="cista-eraft" if arch == "eraft" else "cista-eiflow",
+                 is_bi=bi, is_reverse_events=bi)
+    ds = sim.SimFlowPairs(cfg)
+    picked = [ds[i] for i in (items or [i for i in range(1, len(ds)) if i % 10][:batch])]
+    out = {k: np.stack([it[k] for it in picked]) for k in picked[0]}
+    if arch == "raft":               # the grey frames as RGB, one scale per channel
+        for k in ("gt_img0", "gt_img1"):
+            out[k] = np.concatenate([out[k], 0.9 * out[k], 0.8 * out[k]], 1)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def pretrain_cfg(arch: str, hw, iters: int, dtype: str = "float32", is_bi: bool = False):
+    from cista_flow_torch.config import Config
+    return Config(image_dim=tuple(hw), flow_iters=iters, dtype=dtype, is_bi=is_bi,
+                  is_reverse_events=is_bi,
+                  model_mode="cista-eraft" if arch == "eraft" else "cista-eiflow")
+
+
+def pretrain_against_cpu(torch, repo: Path, counters: dict) -> dict:
+    """(a) One f32 ``make_train_step`` step per arch on the card against the
+    same step on the CPU (plain versions), same weights (``flow_net`` from
+    seed 0) and batch, at 64x96, batch 2, 2 iterations: DCEIFlow with the
+    bidirectional branch, E-RAFT, RAFT (Adam). The loss to 1e-6 relative,
+    every gradient leaf by ``leaf_report`` (1e-3; the encoders 1e-2 relative
+    L2; beyond that, no farther from an f64 evaluation than twice the CPU),
+    a gradient on the card wherever the CPU has one, the launches. Then one
+    ``--opt raft`` step of DCEIFlow on both, its clip at half the norm of
+    the CPU's gradient above so that it acts: the learning rate the
+    schedule's first; the clipped gradients against the CPU's as above, and
+    on the card the Adam step's gradients scaled by clip / their norm; the
+    parameters after the step AdamW's first step from the clipped gradient
+    at that rate (to 2 f32 ulps of the parameter)."""
+    import copy
+
+    from cista_flow_torch import pretrain_flow as pf
+
+    total = {k: 0 for k in counters}
+    adam = {}
+    for arch, bi, opt_name in (("dceiflow", True, "adam"), ("eraft", False, "adam"),
+                               ("raft", False, "adam"), ("dceiflow", True, "raft")):
+        cfg = pretrain_cfg(arch, PRETRAIN_SMALL, 2, is_bi=bi)
+        seq = pretrain_batch(torch, repo, arch, PRETRAIN_SMALL, 2, "cpu", items=[1, 2], bi=bi)
+        base = pf.flow_net(arch, cfg, "cpu", seed=0)
+        clip = 0.5 * global_norm(torch, adam[arch]["cpu"].values()) if arch in adam else 1.0
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = copy.deepcopy(base).to(dev)
+            opt = (pf.make_raft_optimizer(model, PRETRAIN_LR, 100, clip=clip)
+                   if opt_name == "raft" else pf.make_optimizer(model, PRETRAIN_LR))
+            step = pf.make_train_step(cfg, opt, bi, arch)
+            batch = {k: v.to(dev) for k, v in seq.items()}
+            before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+            if dev == "cuda":
+                (loss, epe), got = counted(counters, lambda: step(model, batch))
+                expect_launches(f"pretrain {arch}{' bi' if bi else ''} --opt {opt_name}, f32",
+                                got, pretrain_launches(arch, 2, bi))
+                for key in total:
+                    total[key] += got[key]
+            else:
+                loss, epe = step(model, batch)
+            runs[dev] = dict(
+                loss=float(loss), epe=float(epe), lr=opt.param_groups[0]["lr"], before=before,
+                grads={f"event_flownet.{n}": p.grad.detach().cpu()
+                       for n, p in model.named_parameters() if p.grad is not None},
+                after={n: p.detach().cpu() for n, p in model.named_parameters()})
+        tag = f"pretrain {arch}{' bidirectional' if bi else ''} --opt {opt_name}"
+        rel = abs(runs["cuda"]["loss"] - runs["cpu"]["loss"]) / abs(runs["cpu"]["loss"])
+        print(f"  {tag}: loss card {runs['cuda']['loss']:.7f}, cpu {runs['cpu']['loss']:.7f}, "
+              f"relative difference {rel:.3e} (tol 1e-6); epe {runs['cuda']['epe']:.5f}, "
+              f"{runs['cpu']['epe']:.5f}")
+        if rel > 1e-6:
+            raise AssertionError(f"{tag}: loss differs by {rel}")
+        g_cpu, g_card = runs["cpu"]["grads"], runs["cuda"]["grads"]
+        mode = "cista-eiflow" if arch == "dceiflow" else "cista-eraft"
+        if opt_name == "adam":
+            if sorted(g_card) != sorted(g_cpu):
+                raise AssertionError(f"{tag}: the card's gradient leaves are not the CPU's")
+            cut = [k for k, g in g_cpu.items()
+                   if float(g.abs().max()) > 0 and float(g_card[k].abs().max()) == 0]
+            if cut:
+                raise AssertionError(f"{tag}: no gradient on the card for {cut[:8]}")
+            exact = f64_grads(torch, base, cfg, arch, bi, seq)
+            print(f"  {tag}: against f64 (relative L2), card / CPU: " + "; ".join(
+                f"{n} {a:.2e} / {c:.2e}" for a, c, n in far_from_f64(exact, g_card, g_cpu)[:3]))
+            leaf_report(tag, g_card, g_cpu, 1e-3, True, mode, exact=exact)
+            adam[arch] = dict(cpu=g_cpu, cuda=g_card, exact=exact)
+            continue
+        want_lr = pf.onecycle_lr(PRETRAIN_LR, 100)(0)
+        if not runs["cuda"]["lr"] == runs["cpu"]["lr"] == want_lr:
+            raise AssertionError(f"{tag}: learning rate {runs['cuda']['lr']} on the card, "
+                                 f"{runs['cpu']['lr']} on the CPU, not the schedule's {want_lr}")
+        norm = global_norm(torch, g_card.values())
+        unclipped = adam[arch]["cuda"]
+        scale = clip / global_norm(torch, unclipped.values())
+        vs_adam = global_norm(torch, (g_card[k] - scale * unclipped[k] for k in g_card)) / clip
+        print(f"  {tag}: clip {clip:.4f} (half the CPU's gradient norm); clipped norm on the "
+              f"card {norm:.6f}; the card's clipped gradients against its Adam step's x "
+              f"{scale:.4f}: {vs_adam:.3e} relative L2 (tol 1e-5)")
+        if abs(norm - clip) > 1e-5 * clip or vs_adam > 1e-5:
+            raise AssertionError(f"{tag}: the card's clip is not optax's ({norm}, {vs_adam})")
+        exact = adam[arch]["exact"]
+        exact_scale = clip / global_norm(torch, exact.values())
+        leaf_report(f"{tag}, clipped", g_card, g_cpu, 1e-3, True, mode,
+                    exact={k: v * exact_scale for k, v in exact.items()})
+        for dev, r in runs.items():
+            worst = 0.0
+            for n, p0 in r["before"].items():
+                g = r["grads"][f"event_flownet.{n}"].double()
+                want = p0.double() * (1 - want_lr * 1e-4) - want_lr * g / (g.abs() + 1e-8)
+                limit = 2 * 2.0 ** -23 * p0.double().abs() + 1e-6 * want_lr
+                worst = max(worst, float(((r["after"][n].double() - want).abs() / limit).max()))
+            print(f"  {tag}: {dev} parameters after the step against AdamW's first step from "
+                  f"the clipped gradients: {worst:.3f} of the limit (2 ulps + 1e-6 lr)")
+            if worst > 1.0:
+                raise AssertionError(f"{tag}: {dev}: the update is not AdamW's ({worst})")
+    return total
+
+
+def global_norm(torch, grads) -> float:
+    """The L2 norm over every tensor of ``grads``, in f64."""
+    return float(torch.cat([g.double().flatten() for g in grads]).norm())
+
+
+def f64_grads(torch, base, cfg, arch, bi, seq) -> dict:
+    """The gradients of the same step in f64 on the CPU, keyed
+    ``event_flownet.<parameter>``: the flow net and the loss as
+    ``make_train_step`` calls them, on f64 copies of ``base`` and ``seq``."""
+    import copy
+
+    from cista_flow_torch import pretrain_flow as pf
+    from cista_flow_torch.losses.flow import flow_sequence_loss
+
+    model = copy.deepcopy(base).double().train()
+    b = {k: v.double() for k, v in seq.items()}
+    out = pf.flow_forward(model, b, arch, cfg.default_flow_iters())
+    flow_sequence_loss(out, pretrain_target(b, bi), cfg, is_bi=bi)[0].backward()
+    return {f"event_flownet.{n}": p.grad for n, p in model.named_parameters()}
+
+
+def far_from_f64(exact: dict, got: dict, ref: dict) -> list:
+    """(distance of ``got``, distance of ``ref``, name) from ``exact`` by
+    relative L2 per leaf, the farthest ``got`` first; the pre-norm biases
+    (true gradient 0) aside."""
+    rows = []
+    for k, x in exact.items():
+        n = k.removeprefix("event_flownet.")
+        if not FLOW_PRE_NORM.match(n):
+            rows.append(tuple(float((g[k].double() - x).norm() / x.norm()) for g in (got, ref))
+                        + (n,))
+    return sorted(rows, reverse=True)
+
+
+def pretrain_target(b: dict, bi: bool) -> dict:
+    """The sequence loss's targets from a pretraining batch ``b``, as
+    ``make_train_step`` builds them (the first frame channel)."""
+    target = {"gt_img0": b["gt_img0"][:, :1].contiguous(),
+              "gt_img1": b["gt_img1"][:, :1].contiguous(), "gt_flow": b["gt_flow"],
+              "valid": b["valid"]}
+    if bi:
+        target.update(gt_flow_bw=b["gt_flow_bw"], valid_bw=b["valid"])
+    return target
+
+
+def grad_sources(torch, repo: Path) -> None:
+    """``--grad-sources``: where the card's f32 pretraining gradients part
+    from an f64 evaluation of the same step, for RAFT and DCEIFlow
+    (bidirectional) at phase 11 (a)'s size and weights. The card runs
+    ``make_train_step`` (a zero-rate SGD) under settings that each take one
+    suspect out: as the step runs; the K1, K2, K4 and K5 wrappers on their
+    plain versions (no kernel, no ``KernelFunction``); cuDNN off
+    (PyTorch's own convolutions); both; cuDNN held to deterministic
+    algorithms. For each: how many leaves are more than 10x the CPU's
+    distance from f64 (and above 1e-5), the three worst by that ratio, and
+    the flow head's first conv. Then the CPU's step on frames moved up by
+    one ulp at half the pixels (how far input rounding alone carries each
+    leaf), and for RAFT the share of pixels where its input scaling x / 255
+    rounds otherwise on the card. Then the loss alone: its gradient with
+    respect to the f64 run's flow predictions, on the CPU and on the card
+    (the K2 kernel forward, and its plain version), against f64."""
+    import contextlib
+    import copy
+    from unittest import mock
+
+    from cista_flow_torch import pretrain_flow as pf
+    from cista_flow_torch.losses.flow import flow_sequence_loss
+    from cista_flow_torch.ops import cuda_aug, cuda_conv, cuda_corr, cuda_norm
+
+    @contextlib.contextmanager
+    def setting(plain=(), cudnn=True, deterministic=False):
+        flags = torch.backends.cudnn
+        saved = flags.enabled, flags.deterministic
+        with contextlib.ExitStack() as stack:
+            for m in plain:
+                stack.enter_context(mock.patch.object(m, "on_cpu", lambda t: True))
+            flags.enabled, flags.deterministic = cudnn, deterministic
+            try:
+                yield
+            finally:
+                flags.enabled, flags.deterministic = saved
+
+    wrappers = {"K1": cuda_corr, "K2": cuda_aug, "K4": cuda_norm, "K5": cuda_conv}
+    every = tuple(wrappers.values())
+    settings = {"as the step runs": {}, "plain versions": dict(plain=every),
+                **{f"plain {k} alone": dict(plain=(m,)) for k, m in wrappers.items()},
+                "cuDNN off": dict(cudnn=False), "plain versions, cuDNN off": dict(
+                    plain=every, cudnn=False), "cuDNN deterministic": dict(deterministic=True)}
+
+    def grads(base, cfg, arch, bi, seq, dev):
+        model = copy.deepcopy(base).to(dev)
+        step = pf.make_train_step(cfg, torch.optim.SGD(model.parameters(), lr=0.0), bi, arch)
+        step(model, {k: v.to(dev) for k, v in seq.items()})
+        return {f"event_flownet.{n}": p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+    for arch, bi in (("raft", False), ("dceiflow", True)):
+        cfg = pretrain_cfg(arch, PRETRAIN_SMALL, 2, is_bi=bi)
+        seq = pretrain_batch(torch, repo, arch, PRETRAIN_SMALL, 2, "cpu", items=[1, 2], bi=bi)
+        base = pf.flow_net(arch, cfg, "cpu", seed=0)
+        exact = f64_grads(torch, base, cfg, arch, bi, seq)
+        g_cpu = grads(base, cfg, arch, bi, seq, "cpu")
+        print(f"{arch}{' bidirectional' if bi else ''}, f32 step against f64 (relative L2 "
+              "per leaf, card / CPU):")
+        for name, kw in settings.items():
+            with setting(**kw):
+                rows = far_from_f64(exact, grads(base, cfg, arch, bi, seq, "cuda"), g_cpu)
+            gap = sorted((r for r in rows if r[0] > 10 * r[1] and r[0] > 1e-5),
+                         key=lambda r: r[0] / max(r[1], 1e-30), reverse=True)
+            head = next(r for r in rows if r[2] == "update_block.flow_head.conv1.weight")
+            print(f"  {name}: {len(gap)} of {len(rows)} leaves beyond 10x the CPU's distance "
+                  + ("; ".join(f"{n} {a:.2e} / {c:.2e}" for a, c, n in gap[:3]) or "-")
+                  + f"; flow_head.conv1.weight {head[0]:.2e} / {head[1]:.2e}; farthest "
+                  f"{rows[0][2]} {rows[0][0]:.2e} / {rows[0][1]:.2e}")
+
+        # how far one ulp of input noise alone moves the CPU's f32 step
+        gen = torch.Generator().manual_seed(5)
+        nudged = dict(seq)
+        for k in ("gt_img0", "gt_img1"):
+            up = torch.nextafter(seq[k], torch.full_like(seq[k], 2.0))
+            nudged[k] = torch.where(torch.rand(seq[k].shape, generator=gen) < 0.5, up, seq[k])
+        rows = far_from_f64(exact, grads(base, cfg, arch, bi, nudged, "cpu"), g_cpu)
+        print("  CPU, the frames moved up by one ulp at half the pixels / CPU: "
+              + "; ".join(f"{n} {a:.2e} / {c:.2e}" for a, c, n in rows[:3]))
+        if arch == "raft":
+            x = 255.0 * seq["gt_img0"]
+            differ = float(((x.cuda() / 255.0).cpu() != x / 255.0).float().mean())
+            print(f"  RAFT's input scaling x / 255 on the card differs from the CPU's at "
+                  f"{100 * differ:.1f}% of the pixels")
+
+        model = copy.deepcopy(base).double().train()
+        out = pf.flow_forward(model, {k: v.double() for k, v in seq.items()}, arch,
+                              cfg.default_flow_iters())
+        found = {}
+        for name, dev, dtype, kw in (("f64", "cpu", torch.float64, {}),
+                                     ("CPU", "cpu", torch.float32, {}),
+                                     ("card", "cuda", torch.float32, {}),
+                                     ("card, plain K2", "cuda", torch.float32,
+                                      dict(plain=(cuda_aug,)))):
+            with setting(**kw):
+                o = {k: v.detach().to(dev, dtype).requires_grad_(k.startswith("flow_preds"))
+                     for k, v in out.items() if torch.is_tensor(v)}
+                target = pretrain_target({k: v.to(dev, dtype) for k, v in seq.items()}, bi)
+                loss = flow_sequence_loss(o, target, cfg, is_bi=bi)[0]
+                found[name] = torch.autograd.grad(loss, o["flow_preds"])[0].double().cpu()
+        x = found.pop("f64")
+        print("  the loss's gradient w.r.t. the f64 run's flow predictions against f64 "
+              "(relative L2): " + ", ".join(f"{n} {float((g - x).norm() / x.norm()):.2e}"
+                                            for n, g in found.items()))
+
+
+def traced_step(torch, repo: Path, step, model, batch, ms: float):
+    """One ``step(model, batch)`` under the profiler (host and card):
+    returns the device-busy share (the card's activity, kernels, copies and
+    fills, over ``ms``, the device time of the same step untraced) and that
+    activity in device ms by part of the step, read from the trace's
+    launches: ``optimizer`` where the launch lies in torch's
+    ``Optimizer.step`` range (the clip and AdamW), ``backward`` where it
+    comes from another thread than the step's (autograd runs a CUDA
+    backward on its own device thread), ``forward`` the rest (the casts,
+    the flow net, the loss)."""
+    prof_ = torch.profiler
+    with prof_.profile(activities=[prof_.ProfilerActivity.CPU,
+                                   prof_.ProfilerActivity.CUDA]) as prof:
+        with prof_.record_function("chip_smoke.step"):
+            step(model, batch)
+        torch.cuda.synchronize()
+    path = repo / "build" / "pretrain_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    path.unlink()
+    marks = [e for e in events if e.get("cat") == "user_annotation"]
+    main_tid = next(e["tid"] for e in marks if e["name"] == "chip_smoke.step")
+    optimizer = [(e["ts"], e["ts"] + e["dur"]) for e in marks
+                 if e["name"].startswith("Optimizer.step#") and e["tid"] == main_tid]
+    # the host side of each launch: the CUDA API call, on the thread that made it
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat", "").startswith("cuda_") and "correlation" in e.get("args", {})}
+    parts = dict(forward=0.0, backward=0.0, optimizer=0.0, unmatched=0.0)
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        if launch is None:
+            part = "unmatched"
+        elif launch["tid"] != main_tid:
+            part = "backward"
+        elif any(a <= launch["ts"] <= b for a, b in optimizer):
+            part = "optimizer"
+        else:
+            part = "forward"
+        parts[part] += e["dur"] / 1e3
+    if not optimizer or not parts["backward"] or parts["unmatched"] > 0.01 * sum(parts.values()):
+        raise AssertionError(f"the trace's split is not readable: {len(optimizer)} optimizer "
+                             f"ranges, device ms {parts}")
+    return sum(parts.values()) / ms, parts
+
+
+def pretrain_bf16(torch, repo: Path, counters: dict) -> dict:
+    """(b) bf16 pretraining steps at full width (``PRETRAIN_BF16``), the
+    ``--opt raft`` optimizer: a warm-up step, then a counted step
+    (launches against ``pretrain_launches``) timed by CUDA events with the
+    peak memory, then a traced step (``traced_step``: the device-busy share
+    and the device time of the forward, the backward and the optimizer);
+    the loss finite and the parameters f32."""
+    from cista_flow_torch import pretrain_flow as pf
+
+    total = {k: 0 for k in counters}
+    for arch, iters, hw, batch_size in PRETRAIN_BF16:
+        cfg = pretrain_cfg(arch, hw, iters, "bfloat16")
+        batch = pretrain_batch(torch, repo, arch, hw, batch_size, "cuda")
+        model = pf.flow_net(arch, cfg, "cuda", seed=0)
+        opt = pf.make_raft_optimizer(model, PRETRAIN_LR, 100)
+        step = pf.make_train_step(cfg, opt, False, arch)
+        t0 = time.perf_counter()
+        step(model, batch)                                        # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        (loss, epe), got = counted(counters, lambda: step(model, batch))
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tag = f"pretrain {arch} bf16, {hw[0]}x{hw[1]}, batch {batch_size}, {iters} iterations"
+        expect_launches(f"{tag} step", got, pretrain_launches(arch, iters))
+        for key in total:
+            total[key] += got[key]
+        busy, split = traced_step(torch, repo, step, model, batch, ms)
+        if not np.isfinite(float(loss)) or any(p.dtype != torch.float32
+                                               for p in model.parameters()):
+            raise AssertionError(f"{tag}: loss {float(loss)}, or master parameters not f32")
+        print(f"  {tag}: loss {float(loss):.4f}, epe {float(epe):.3f}; device ms per step "
+              f"{ms:.1f}; device busy {100 * busy:.1f}%, of which, device ms: forward "
+              f"{split['forward']:.1f}, backward {split['backward']:.1f}, optimizer "
+              f"{split['optimizer']:.1f}, unmatched {split['unmatched']:.2f}; peak memory "
+              f"{peak:.2f} GiB (host s: warm-up {t1 - t0:.1f})")
+    return total
+
+
+def kernels_at_pretrain_shapes(torch) -> dict:
+    """(c) The kernels at the shapes pretraining gives them and no earlier
+    phase holds, against their plain versions, timed as in phase 3: K1 on
+    RAFT's 48x64 pyramid at batch 10, K2 as the sequence loss calls it
+    (the first frame, C = 1, in the step's dtype, warped by an f32 flow,
+    ungated) at RAFT's 384x512 and at 192x256, K4 at RAFT's fnet planes
+    (2B = 20 samples), K5 at RAFT's 64->64 convs at 192x256 and 128->128
+    at 48x64. Then K3a and the K4s route with gradients on the card against autograd
+    of their plain versions on the same inputs, in f32 and bf16 (the
+    Function's backward recomputes that plain version: they differ by the
+    card's summation order alone). Returns rows per kernel for the kernels
+    line's ``shapes``."""
+    import torch.nn.functional as F
+    from cista_flow_torch.ops import cuda_aug, cuda_conv, cuda_ista2, cuda_norm
+    from cista_flow_torch.profile_kernels import grid_sample_call
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    rows = {"K1": [], "K2": [], "K4": [], "K5": []}
+    print("kernels at the pretraining shapes:")
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        es = torch.tensor([], dtype=dt).element_size()
+        with cudnn_fp32_scope(torch, "float32"):
+            k1 = k1_checks(torch, randn, dtype, shapes=(RAFT_PYRAMID,))
+        rows["K1"] += [dict(r, dtype=dtype) for r in k1["shapes"]]
+        for shape in PRETRAIN_WARP_SHAPES:
+            bsz, c, hh, ww = shape
+            img = torch.rand(*shape, generator=g, device=dev).to(dt)     # a frame in [0, 1)
+            flow = randn(bsz, 2, hh, ww, scale=3.0)
+            ref = cuda_aug.warp_reflect_plain(img.float(), flow, -1.0)
+            err = compare(torch, f"K2 warp {shape}", dtype, cuda_aug.warp_reflect(img, flow, -1.0),
+                          ref, warp_tol(img, ref, max(hh, ww), dtype))
+            ms = time_ms(torch, lambda: cuda_aug.warp_reflect(img, flow, -1.0))
+            plain = time_ms(torch, lambda: cuda_aug.warp_reflect_plain(img, flow, -1.0))
+            lib = time_ms(torch, grid_sample_call(img, flow, -1.0))
+            bms, by = bound(2 * img.numel() * es + flow.numel() * 4,
+                            bsz * hh * ww * (40 + 8 * c), "float32")
+            print(f"  K2 {shape} {dtype}: {ms:.4f} ms (plain {plain:.4f}, grid_sample "
+                  f"{lib:.4f}, bound {bms:.4f} by {by})")
+            rows["K2"].append(dict(shape=list(shape), dtype=dtype, max_abs_err=err, ms=ms,
+                                   plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib))
+            del img, flow, ref
+        for shape in RAFT_NORM_SHAPES:
+            x = (randn(*shape) * 2.0 + 0.5).to(dt)
+            ref = cuda_norm.instance_norm_plain(x.float(), relu=True)
+            err = compare(torch, f"K4 norm {shape} relu=True", dtype,
+                          cuda_norm.instance_norm_fused(x, relu=True), ref,
+                          2e-5 if dtype == "float32" else bf16_tol(ref, 2))
+            ms = time_ms(torch, lambda: cuda_norm.instance_norm_fused(x, relu=True))
+            plain = time_ms(torch, lambda: cuda_norm.instance_norm_plain(x, relu=True))
+            lib = time_ms(torch, lambda: F.relu(F.instance_norm(x)))
+            bms, by = bound(2 * x.numel() * es, 7 * x.numel(), "float32")
+            print(f"  K4 {shape} {dtype}: {ms:.4f} ms (plain {plain:.4f}, F.instance_norm + "
+                  f"relu {lib:.4f}, bound {bms:.4f}; rule "
+                  f"{cuda_norm.launch_rule(shape[2] * shape[3], es)})")
+            rows["K4"].append(dict(shape=list(shape), dtype=dtype, max_abs_err=err, ms=ms,
+                                   plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib))
+            del x, ref
+        for shape in RAFT_CONV_SHAPES:
+            c = shape[1]
+            x = randn(*shape).to(dt)
+            wk = randn(c, c, 3, 3, scale=(9 * c) ** -0.5).to(dt)
+            bk = randn(c, scale=0.1).to(dt)
+            with cudnn_fp32_scope(torch, "float32"):
+                ref = cuda_conv.conv3x3_plain(x.float(), wk.float(), bk.float(), "zeros", True)
+                err = compare(torch, f"K5 conv3x3 {shape[1:]} zeros relu=True", dtype,
+                              cuda_conv.conv3x3(x, wk, bk, "zeros", True), ref,
+                              f32_tol(ref) if dtype == "float32" else bf16_tol(ref, 2))
+                ms = time_ms(torch, lambda: cuda_conv.conv3x3(x, wk, bk, "zeros", True))
+                lib = time_ms(torch, lambda: cuda_conv.conv3x3_plain(x, wk, bk, "zeros", True))
+            ops = 2 * 9 * c * c * shape[0] * shape[2] * shape[3]
+            bms, by = bound((2 * x.numel() + wk.numel() + bk.numel()) * es, ops, dtype)
+            print(f"  K5 {shape} {dtype}: {ms:.4f} ms (F.conv2d {lib:.4f}, bound {bms:.4f} by "
+                  f"{by}; {ops / ms * 1e-9:.1f} TFLOP/s)")
+            rows["K5"].append(dict(shape=list(shape), dtype=dtype, max_abs_err=err, ms=ms,
+                                   plain_ms=lib, bound_ms=bms, bound_by=by, library_ms=lib))
+            del x, ref
+
+        # K3a and the K4s route under a gradient: the kernel forward, autograd
+        # of the plain version backward, against autograd of the plain version
+        c = 64
+        leaves = [randn(c, 2 * c, 3, 3, scale=(18 * c) ** -0.5), randn(c, scale=0.05),
+                  randn(2 * c, c, 3, 3, scale=(9 * c) ** -0.5), randn(2 * c, scale=0.05),
+                  torch.rand(2 * c, generator=g, device=dev) * 0.01,
+                  randn(2, c, 45, 60), randn(2, 2 * c, 45, 60, scale=0.1)]
+        cases = {"K3a": (lambda *t: cuda_ista2.fused_ista_v2(t[:5], t[5], t[6], 2),
+                         lambda *t: cuda_ista2.ista_loop_plain(t[:5], t[5], t[6], 2), leaves),
+                 "K4s": (lambda x: cuda_norm.instance_norm_from_stats(x, relu=True),
+                         lambda x: cuda_norm.instance_norm_plain(x, relu=True),
+                         [randn(4, 64, 48, 64) * 2.0 + 0.5])}
+        for key, (fn, plain, inputs) in cases.items():
+            cot = torch.randn(inputs[-1].shape, generator=g, device=dev).to(dt)
+            grads = []
+            for f in (fn, plain):
+                ts = [t.to(dt).requires_grad_(True) for t in inputs]
+                out = f(*ts)
+                if f is fn and getattr(out.grad_fn, "kernel", None) != key:
+                    raise AssertionError(f"{key}: its kernel Function is not in the graph")
+                grads.append(torch.autograd.grad(out, ts, cot))
+            for i, (a, b) in enumerate(zip(*grads)):
+                compare(torch, f"{key} gradient of input {i}, kernel forward", dtype, a, b,
+                        f32_tol(b) if dtype == "float32" else bf16_tol(b, 2))
+    return rows
+
+
+def flow_quality_smoke(torch, repo: Path, counters: dict) -> dict:
+    """(d) A reduced ``python -m cista_flow_torch.sim_flow_quality``
+    (``FLOW_SMOKE``: DCEIFlow, 180x240, bf16, the one-cycle AdamW) into the
+    ignored ``build/sim_flow_quality_smoke``: every EPE finite and the
+    trained net's below the untrained one's; then its checkpoint through
+    ``--path_to_flownet`` into one reduced ``sim_quality`` epoch of
+    cista-eiflow (``FLOWNET_SMOKE``)."""
+    import shutil
+
+    from cista_flow_torch import sim_flow_quality, sim_quality
+
+    work = repo / "build" / "sim_flow_quality_smoke"
+    shutil.rmtree(work / "models", ignore_errors=True)
+    t0 = time.perf_counter()
+    out, got = counted(counters, lambda: sim_flow_quality.run(sim_flow_quality.parse_args(
+        ["--workdir", str(work), *FLOW_SMOKE])))
+    print(f"  sim_flow_quality {' '.join(FLOW_SMOKE)}: {json.dumps(out)}; launches {got}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not all(np.isfinite(out[k]) for k in ("epe_zero", "epe_init", "epe_trained")):
+        raise AssertionError(f"sim_flow_quality: an EPE is not finite: {out}")
+    if not out["epe_trained"] < out["epe_init"]:
+        raise AssertionError(f"sim_flow_quality: epe_trained {out['epe_trained']} >= "
+                             f"epe_init {out['epe_init']}")
+    qwork = repo / "build" / "sim_quality_flownet"
+    shutil.rmtree(qwork / "models", ignore_errors=True)
+    t1 = time.perf_counter()
+    q, got_q = counted(counters, lambda: sim_quality.run(sim_quality.parse_args(
+        ["--workdir", str(qwork), "--path_to_flownet", out["ckpt"], *FLOWNET_SMOKE])))
+    print(f"  sim_quality {' '.join(FLOWNET_SMOKE)} --path_to_flownet {out['ckpt']}: "
+          f"{json.dumps(q)}; launches {got_q}; {time.perf_counter() - t1:.1f} s")
+    if not all(np.isfinite(v) for k, v in q.items() if k not in ("ckpt", "epochs")):
+        raise AssertionError(f"sim_quality from the pretrained flow net: {q}")
+    return {k: got[k] + got_q[k] for k in got}
+
+
+def flow_pretraining(torch, repo: Path, counters: dict) -> dict:
+    """Phase 11: flow-net pretraining. See the module's docstring."""
+    total = {k: 0 for k in counters}
+    for part in (pretrain_against_cpu, pretrain_bf16, flow_quality_smoke):
         t0 = time.perf_counter()
         for key, n in part(torch, repo, counters).items():
             total[key] += n

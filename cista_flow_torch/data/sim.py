@@ -2,13 +2,13 @@
 training layout.
 
 A numpy copy of the JAX package's simulator (cista_flow_tpu/data/sim.py:
-the scene, ``simulate_sequence``, ``write_eval_sequence`` and
-``write_train_dataset``), the port's only source of gate and training
-data: a smooth random texture moves under a known time-varying affine
-motion; frames are exact bilinear samples, events are
-emitted per pixel at log-intensity threshold crossings (the ESIM contrast
-model, Rebecq et al., CoRL'18) and the flow comes from the analytic motion,
-so frames, events and flow agree. The same seed gives the same arrays as
+the scene, ``simulate_sequence``, ``write_eval_sequence``,
+``write_train_dataset`` and the flow-pretraining pairs ``SimFlowPairs``),
+the port's only source of gate and training data: a smooth random
+texture moves under a known time-varying affine motion; frames are exact
+bilinear samples, events are emitted per pixel at log-intensity
+threshold crossings (the ESIM contrast model, Rebecq et al., CoRL'18) and
+the flow comes from the analytic motion, so frames, events and flow agree. The same seed gives the same arrays as
 the JAX package's. Frames are written with the port's own PNG codec.
 
 Eval layout (ref: data_readers/video_readers.py:343-457):
@@ -274,3 +274,54 @@ def ensure_eval_data(workdir: str, h: int, w: int, eval_frames: int,
             write_eval_sequence(sdir, simulate_sequence(
                 seed + 777_000 + s, eval_frames, h, w))
     return eval_dir
+
+
+class SimFlowPairs:
+    """Independent (events, I0, I1, flow01) samples of the simulated
+    training layout, the flow-pretraining set of ``pretrain_flow --data_kind
+    sim`` (counterpart of cista_flow_tpu/data/sim.py:357-423): each line of
+    the index is one item of CHW float32 arrays, voxelized and normalised
+    as the composite's training loader does it, so a flow net pretrained
+    here drops into the composite's schedule. Item keys: ``event_voxel``,
+    ``gt_img0``/``gt_img1`` (1, H, W), ``gt_flow`` (the generator's forward
+    ``flow01``, no warp-mode sign), ``valid``; with ``is_bi`` also
+    ``gt_flow_bw`` (``flow10``) and, with reversed events, ``event_voxel_bw``;
+    for cista-eraft ``event_voxel_old``. ``aug`` flips each item
+    horizontally and vertically with probability 1/2 each (negating the
+    matching flow component), drawn from ``default_rng(seed + 9173)`` in
+    the JAX class's order."""
+
+    def __init__(self, cfgs, train_data_txt: str | None = None, aug: bool = False):
+        from .train_loader import TrainSequenceDataset
+        txt = train_data_txt or os.path.join(cfgs.path_to_train_data, "train_e2v_estflow.txt")
+        self.ds = TrainSequenceDataset(txt, cfgs)
+        self.is_bi = cfgs.is_bi
+        self.aug = aug
+        self._rng = np.random.default_rng(getattr(cfgs, "seed", 0) + 9173)
+
+    def __len__(self):
+        return len(self.ds.event_paths)
+
+    def __getitem__(self, i):
+        bd, bt = self.ds.get_step(i, load_flow=False)
+        f = np.load(os.path.join(self.ds.root, self.ds.flow_paths[i]))
+        h, w = bt["gt_img0"].shape[-2:]
+        item = {"event_voxel": bd["event_voxel"].astype(np.float32),
+                "gt_img0": bt["gt_img0"].astype(np.float32),
+                "gt_img1": bt["gt_img1"].astype(np.float32),
+                "gt_flow": f["flow01"].astype(np.float32),
+                "valid": np.ones((1, h, w), np.float32)}
+        if self.is_bi:
+            item["gt_flow_bw"] = f["flow10"].astype(np.float32)
+            if "event_voxel_bw" in bd:
+                item["event_voxel_bw"] = bd["event_voxel_bw"].astype(np.float32)
+        if "event_voxel_old" in bd:
+            item["event_voxel_old"] = bd["event_voxel_old"].astype(np.float32)
+        if self.aug:
+            for axis, comp in ((-1, 0), (-2, 1)):        # horizontal, then vertical
+                if self._rng.random() < 0.5:
+                    item = {k: np.ascontiguousarray(np.flip(v, axis)) for k, v in item.items()}
+                    for k in ("gt_flow", "gt_flow_bw"):
+                        if k in item:
+                            item[k][comp] = -item[k][comp]
+        return item

@@ -128,11 +128,12 @@ class TrainSequenceDataset:
         return self.flow_coef * np.load(os.path.join(self.root, rel_path),
                                         allow_pickle=True)[name]
 
-    def get_step(self, line_id):
+    def get_step(self, line_id, load_flow=True):
         """One step as (batch_data, batch_target) of CHW arrays: the voxel
         (bins, H, W) [+ its reversed twin] [+ cista-eraft's previous voxel],
         the frames (1, H, W), the flow (2, H, W) [+ its backward twin with
-        ``is_bi``]."""
+        ``is_bi``]. ``load_flow=False`` leaves the flows out, for a reader
+        of the raw flow file (``sim.SimFlowPairs``)."""
         window = self._load_events(self.event_paths[line_id])
         batch_data = {"event_voxel": self._voxel(window)}
         if self.is_reverse_events:
@@ -147,8 +148,10 @@ class TrainSequenceDataset:
                 batch_data["event_voxel_old"] = self._voxel(
                     self._load_events(self.event_paths[line_id - 1]))
         batch_target = {"gt_img0": self._load_image(self.image_paths[line_id]),
-                        "gt_img1": self._load_image(self.next_image_paths[line_id]),
-                        "gt_flow": self._load_flow(self.flow_paths[line_id], self.flow_name)}
+                        "gt_img1": self._load_image(self.next_image_paths[line_id])}
+        if not load_flow:
+            return batch_data, batch_target
+        batch_target["gt_flow"] = self._load_flow(self.flow_paths[line_id], self.flow_name)
         if self.is_bi:
             batch_target["gt_flow_bw"] = self._load_flow(self.flow_paths[line_id],
                                                          self.flow_name_bw)

@@ -51,7 +51,13 @@ class ERAFT(nn.Module):
         padder = ImagePadder(voxel_new.shape[2:], min_size=32)
         if encoded is None:
             encoded = self.encode(padder.pad(voxel_old), padder.pad(voxel_new))
-        fmap1, fmap2, cnet = encoded
+        flow_init_out, flow_preds = self.iterate(*encoded, iters, flow_init, collect_preds)
+        return {"flow_preds": flow_preds, "flow_init": flow_init_out,
+                "flow_final": padder.unpad(flow_preds[-1]).contiguous()}
+
+    def iterate(self, fmap1, fmap2, cnet, iters, flow_init=None, collect_preds=False):
+        """The pyramid, the GRU iterations and the convex upsampling from
+        encoded features: (flow at 1/8, flow_preds (n, B, 2, 8h, 8w))."""
         pyr = CORR.build_corr_pyramid(fmap1, fmap2, CORR_LEVELS)
         net = torch.tanh(cnet[:, :HDIM])
         inp = torch.relu(cnet[:, HDIM:])
@@ -76,6 +82,4 @@ class ERAFT(nn.Module):
                 preds.append(convex_upsample(coords1 - coords0, mask, 8))
         if not collect_preds:
             preds.append(convex_upsample(coords1 - coords0, mask, 8))
-        flow_preds = torch.stack(preds)
-        return {"flow_preds": flow_preds, "flow_init": coords1 - coords0,
-                "flow_final": padder.unpad(flow_preds[-1]).contiguous()}
+        return coords1 - coords0, torch.stack(preds)

@@ -6,7 +6,8 @@ Counterpart of cista_flow_tpu/nn/encoders.py ``residual_block``,
 ``lite_encoder`` (ref: idn/extractor.py:63-104), with instance norm (kernel
 K4 on the card), eval-mode batch norm or no norm. Convs are zero-padded;
 the square 64- and 128-channel ones are kernel K5 on the card. Module names
-follow the reference, so its state dicts load with ``strict=True``. An
+follow the reference, so its state dicts load with ``strict=True``; conv
+weights start as the reference initialises them (``_kaiming``). An
 encoder's ``norm_route`` selects how its instance norms run: "fused" (K4,
 the default) or "stats" (K4s, then a plain elementwise normalise), the two
 routes of the JAX package's ``conv.instance_norm``.
@@ -20,6 +21,15 @@ from ..ops.conv import batch_norm, conv2d, instance_norm
 from ..ops.cuda_norm import instance_norm_from_stats
 
 NORM_ROUTES = {"fused": instance_norm, "stats": instance_norm_from_stats}
+
+
+def _kaiming(*convs: nn.Conv2d) -> None:
+    """The RAFT encoders' explicit init of their conv weights, kaiming normal
+    over fan_out for a relu (ref: DCEIFlow/core/backbone/raft_encoder.py:
+    160-168; the JAX package's ``KAIMING``); biases keep torch's default,
+    as there."""
+    for conv in convs:
+        nn.init.kaiming_normal_(conv.weight, mode="fan_out", nonlinearity="relu")
 
 
 class _Normed(nn.Module):
@@ -54,6 +64,8 @@ class ResidualBlock(_Normed):
                 self.downsample = nn.Sequential(down, self.norm3)
             else:
                 self.downsample = nn.Sequential(down)
+        _kaiming(self.conv1, self.conv2, *(() if self.downsample is None
+                                           else (self.downsample[0],)))
 
     def forward(self, x):
         y = conv2d(x, self.conv1.weight, self.conv1.bias, self.stride, 1)
@@ -83,6 +95,7 @@ class BasicEncoder(_Normed):
                 ResidualBlock(cin, cout, norm_fn, stride),
                 ResidualBlock(cout, cout, norm_fn, 1)))
         self.conv2 = nn.Conv2d(128, output_dim, 1)
+        _kaiming(self.conv1, self.conv2)
 
     @property
     def norm_route(self) -> str:
@@ -113,6 +126,7 @@ class LiteEncoder(nn.Module):
     def __init__(self, n_first_channels=2, output_dim=32):
         super().__init__()
         self.conv1 = nn.Conv2d(n_first_channels, output_dim, 7, stride=2, padding=3)
+        _kaiming(self.conv1)
         dims = [(output_dim, output_dim, 2), (output_dim, 2 * output_dim, 2)]
         for i, (cin, cout, stride) in enumerate(dims, start=1):
             setattr(self, f"layer{i}", nn.Sequential(

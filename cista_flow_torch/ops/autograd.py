@@ -3,7 +3,7 @@ backward.
 
 Counterpart of the JAX package's ``custom_vjp`` rules on its Pallas kernels
 (pallas_conv.py:180-207, pallas_ista2.py:346-407, pallas_corr.py:344-372,
-pallas_aug.py:84-113, pallas_norm.py:102-130): each backward there is
+pallas_aug.py:84-113, pallas_norm.py:102-130 and :206-223): each backward there is
 ``jax.vjp`` of the plain XLA function, so no backward is a kernel. Here
 ``KernelFunction`` runs a given forward (the CUDA kernel's wrapper, or on the
 CPU in a test the plain version itself), saves the inputs, and in backward
@@ -32,12 +32,14 @@ def at_least_f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def refuse_grad(name: str, *tensors) -> None:
-    """The variant routes have no backward: raise where one is wanted
-    rather than return an output cut out of the graph."""
+    """A function the JAX package cannot differentiate either (K6, whose
+    Pallas call has no ``custom_vjp``; K4s's statistics on their own): raise
+    where a gradient is wanted rather than return an output cut out of the
+    graph."""
     if wants_grad(*tensors):
         raise RuntimeError(
-            f"{name} has no backward (a variant route, off every training path); "
-            "call it under torch.no_grad() or train on the default route")
+            f"{name} has no backward (nor has it in the JAX package); call it under "
+            "torch.no_grad() or train on a route that has one")
 
 
 class KernelFunction(torch.autograd.Function):

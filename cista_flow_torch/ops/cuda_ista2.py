@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .autograd import apply_kernel, refuse_grad
+from .autograd import apply_kernel
 from .conv import conv2d
 from .conv_tile import packed_weights
 from .cuda_build import (DTYPE_CODES, I, Kernel, P, SharedKernel, check_cuda, on_cpu,
@@ -134,14 +134,25 @@ def _loop_mma(kernel, w, x1, z, depth):
     return zg
 
 
+def _by_tensor(fn, depth):
+    """``fn(w, *rest, depth)`` as a function of the five tensors of ``w``
+    taken one by one and the rest, as ``apply_kernel`` passes its inputs."""
+    return lambda *t: fn(t[:5], *t[5:], depth)
+
+
 def fused_ista_v2(w, x1: torch.Tensor, z: torch.Tensor, depth: int) -> torch.Tensor:
     """K3a. w = (dw (C, 2C, 3, 3), db (C,), pw (2C, C, 3, 3), pb (2C,),
     lam (2C,)); x1 (B, C, H, W); z (B, 2C, H, W). Returns z after ``depth``
-    iterations; ``z`` is not modified. No backward: on the card it raises
-    where an input requires a gradient."""
+    iterations; ``z`` is not modified. Differentiable in every tensor: the
+    gradient is autograd of ``ista_loop_plain`` (the JAX package's
+    ``custom_vjp``, pallas_ista2.py:346-363)."""
     if on_cpu(x1):
         return ista_loop_plain(w, x1, z, depth)
-    refuse_grad("fused_ista_v2 (K3a)", *w, x1, z)
+    return apply_kernel("K3a", _by_tensor(_fused_ista_v2_kernel, depth),
+                        _by_tensor(ista_loop_plain, depth), *w, x1, z)
+
+
+def _fused_ista_v2_kernel(w, x1, z, depth):
     check_ista_args("fused_ista_v2", w, x1, z, depth)
     with torch.cuda.device(x1.device):
         if uses_mma_tile(x1.dtype, x1.shape[1]):
@@ -159,12 +170,8 @@ def fused_ista_dg(w, gw, gb, x1: torch.Tensor, z: torch.Tensor, depth: int):
     autograd of ``fused_ista_dg_plain``."""
     if on_cpu(x1):
         return fused_ista_dg_plain(w, gw, gb, x1, z, depth)
-
-    def unpacked(fn):
-        return lambda dw, db, pw, pb, lam, gw, gb, x1, z: fn(
-            (dw, db, pw, pb, lam), gw, gb, x1, z, depth)
-    return apply_kernel("K3", unpacked(_fused_ista_dg_kernel), unpacked(fused_ista_dg_plain),
-                        *w, gw, gb, x1, z)
+    return apply_kernel("K3", _by_tensor(_fused_ista_dg_kernel, depth),
+                        _by_tensor(fused_ista_dg_plain, depth), *w, gw, gb, x1, z)
 
 
 def _fused_ista_dg_kernel(w, gw, gb, x1, z, depth):

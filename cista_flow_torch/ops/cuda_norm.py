@@ -72,9 +72,19 @@ def instance_norm_from_stats(x: torch.Tensor, eps: float = 1e-5,
                              relu: bool = False) -> torch.Tensor:
     """The second route to the same function: statistics from K4s, then the
     normalisation as plain elementwise ops (counterpart of pallas_norm's
-    ``instance_norm_statskernel``)."""
+    ``instance_norm_statskernel``). Differentiable as one function of ``x``:
+    the gradient is autograd of ``instance_norm_plain``, whose statistics
+    are functions of ``x`` (the JAX package's rule, pallas_norm.py:115-127
+    and :206-223)."""
+    if on_cpu(x):
+        return _normalise_by_stats(x, eps, relu)
+    return apply_kernel("K4s", functools.partial(_normalise_by_stats, eps=eps, relu=relu),
+                        functools.partial(instance_norm_plain, eps=eps, relu=relu), x)
+
+
+def _normalise_by_stats(x, eps, relu):
     mean, inv = instance_norm_stats(x, eps)
-    y = (x.float() - mean[:, :, None, None]) * inv[:, :, None, None]
+    y = (at_least_f32(x) - mean[:, :, None, None]) * inv[:, :, None, None]
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype)
@@ -117,7 +127,9 @@ def _instance_norm_kernel(x, eps, relu):
 
 def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5):
     """Per-(sample, channel) mean and inverse std, f32 (B, C) each (K4s).
-    No backward: on the card it raises where ``x`` requires a gradient."""
+    The pair on its own has no backward (nor has it in the JAX package): on
+    the card it raises where ``x`` requires a gradient; differentiate
+    ``instance_norm_from_stats``."""
     if on_cpu(x):
         return instance_norm_stats_plain(x, eps)
     refuse_grad("instance_norm_stats (K4s)", x)

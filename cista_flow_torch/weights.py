@@ -5,7 +5,8 @@ committed ``gate/*_f16.npz``, or a ``.pth.tar``) into ``{key: ndarray}``,
 a JAX-free copy of cista_flow_tpu/ckpt/torch_import.load_state_dict.
 ``from_jax`` turns the JAX package's parameter tree (numpy arrays, HWIO
 convs) into the same key layout, so both packages can compute with one set
-of weights (it maps a gradient tree the same way). ``save_checkpoint``
+of weights (it maps a gradient tree the same way); ``flow_net_from_jax``
+does so for a flow net's tree alone. ``save_checkpoint``
 writes a model in the reference's ``{'epoch', 'state_dict'}`` ``.pth.tar``
 layout, the trainer's checkpoints.
 """
@@ -44,15 +45,17 @@ def load_state_dict(path: str) -> dict:
     return out
 
 
-def save_checkpoint(path: str, model, epoch: int) -> None:
+def save_checkpoint(path: str, model, epoch: int, key: str = "state_dict") -> None:
     """The reference's checkpoint, ``{'epoch': epoch, 'state_dict': ...}``
     (ref: train.py:137-140; the JAX package's ``save_torch_checkpoint``):
-    the composite's ``state_dict`` on the CPU in f32, which lists the
+    the model's ``state_dict`` on the CPU in f32, which lists the
     reference's keys (the tied ISTA block under every ``lista_blocks.{i}``,
-    BatchNorm's running statistics, ``norm3`` also as ``downsample.1``)."""
+    BatchNorm's running statistics, ``norm3`` also as ``downsample.1``).
+    A flow net's own checkpoint keeps it under ``key='model'`` (ref:
+    DCEIFlow/DCEIFlow.py:120-140; the JAX ``pretrain_flow``'s)."""
     import torch
 
-    torch.save({"epoch": epoch, "state_dict": {
+    torch.save({"epoch": epoch, key: {
         k: v.detach().cpu().float() if v.is_floating_point() else v.detach().cpu()
         for k, v in model.state_dict().items()}}, path)
 
@@ -166,10 +169,21 @@ def from_jax(params_np: dict, model_state_np: dict) -> dict:
     _conv(out, pre + "Dg.conv.conv2d", c["Dg"]["conv"])
     _conv(out, pre + "Dg.recurrent_block.Gates", c["Dg"]["lstm"]["gates"])
 
-    f, s = params_np["flow"], model_state_np["flow"]
-    pre = "event_flownet."
-    if not f:                            # cista-lstc, cista-gtflow
-        return out
+    if params_np["flow"]:                # cista-lstc and cista-gtflow have none
+        out.update(flow_net_from_jax(params_np["flow"], model_state_np["flow"],
+                                     "event_flownet."))
+    return out
+
+
+def flow_net_from_jax(f: dict, s: dict, pre: str = "") -> dict:
+    """A flow net's own tree (params ``f`` and BatchNorm state ``s`` of
+    ``dceiflow.init``, ``eraft.init``, ``raft.init`` or IDNet's, numpy
+    leaves) -> the flow net's keys (``fnet.*``, ``cnet.*``,
+    ``update_block.*``; IDNet ``fnet.*``, ``update_net.*``), each under
+    ``pre``: the layout of a flow-net checkpoint (``pretrain_flow``'s
+    ``{'epoch', 'model'}``). IDNet's update block is a ConvGRU, DCEIFlow
+    has an event encoder, E-RAFT and RAFT a mask head."""
+    out = {}
     if "convz" in f["update"]["gru"]:    # IDNet: a ConvGRU, no SepConvGRU
         _idnet(out, pre, f)
         return out
@@ -180,7 +194,7 @@ def from_jax(params_np: dict, model_state_np: dict) -> dict:
         _encoder(out, pre + "enet", f["enet"], s.get("enet", {}), "instance")
         for name in ("conv1", "conv2", "convo"):
             _conv(out, f"{pre}fusion.{name}", f["fusion"][name])
-    else:                                # E-RAFT: the mask head is a Sequential
+    else:                                # E-RAFT, RAFT: the mask head is a Sequential
         _conv(out, f"{pre}update_block.mask.0", u["mask"]["conv1"])
         _conv(out, f"{pre}update_block.mask.2", u["mask"]["conv2"])
     for name, p in u["encoder"].items():

@@ -491,7 +491,8 @@ def test_port_imports_no_jax_statically():
             "evaluate.py"} <= {f.name for f in files}
     assert {f"cista_flow_torch/{m}.py" for m in (
         "utils/image", "data/io", "losses/fwl", "ops/voxel", "test_with_flow", "test_wo_flow",
-        "test_noeval", "timing")} <= names
+        "test_noeval", "timing", "pretrain_flow", "sim_flow_quality", "models/raft",
+        "utils/profiling")} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

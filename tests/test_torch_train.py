@@ -1,7 +1,7 @@
 """Training pieces of the port against the JAX package's on the CPU, in
 f32: the train-mode BatchNorm, the kernels' ``autograd.Function``s (each
 wrapper built as on the card, its kernel's forward swapped for the plain
-version), the variant routes' refusal of a gradient, the weight cache
+version), the variant routes' gradients (K3a, K4s; K6 refuses one), the weight cache
 across an optimizer step, the half-resolution warp flow, the phase
 schedule, the optimizer across a freeze and an unfreeze, and
 ``python -m cista_flow_torch.train`` on a tiny simulated set.
@@ -119,7 +119,15 @@ def _kernel_cases(dtype):
             return fn((dw, db, pw, pb, lam), gw, gb, x1, z, 2)
         return call
 
+    def k3a(plain):
+        def call(dw, db, pw, pb, lam, x1, z):
+            fn = cuda_ista2.ista_loop_plain if plain else cuda_ista2.fused_ista_v2
+            return fn((dw, db, pw, pb, lam), x1, z, 2)
+        return call
+
     c = 2
+    ista = (r(c, 2 * c, 3, 3, scale=0.3), r(c), r(2 * c, c, 3, 3, scale=0.3), r(2 * c),
+            (0.05 * torch.rand(2 * c, generator=g, dtype=dtype)).requires_grad_(True))
     return {
         "K1": (cuda_corr, {"_lookup_kernel": cuda_corr.lookup_plain}, k1(False), k1(True),
                (coords, r(256, 324, 1, 1, scale=0.05), r(256), *levels)),
@@ -133,9 +141,15 @@ def _kernel_cases(dtype):
                (r(c, 2 * c, 3, 3, scale=0.3), r(c), r(2 * c, c, 3, 3, scale=0.3), r(2 * c),
                 (0.05 * torch.rand(2 * c, generator=g, dtype=dtype)).requires_grad_(True),
                 r(c, 2 * c, 3, 3, scale=0.3), r(c), r(1, c, 5, 6), r(1, 2 * c, 5, 6))),
+        "K3a": (cuda_ista2, {"_fused_ista_v2_kernel": cuda_ista2.ista_loop_plain}, k3a(False),
+                k3a(True), (*ista, r(1, c, 5, 6), r(1, 2 * c, 5, 6))),
         "K4": (cuda_norm, {"_instance_norm_kernel": cuda_norm.instance_norm_plain},
                lambda x: cuda_norm.instance_norm_fused(x, 1e-5, True),
                lambda x: cuda_norm.instance_norm_plain(x, 1e-5, True), (r(2, 3, 4, 5),)),
+        # K4s: the statistics from the kernel, the normalise elementwise
+        "K4s": (cuda_norm, {"instance_norm_stats": cuda_norm.instance_norm_stats_plain},
+                lambda x: cuda_norm.instance_norm_from_stats(x, 1e-5, True),
+                lambda x: cuda_norm.instance_norm_plain(x, 1e-5, True), (r(2, 3, 4, 5),)),
         "K5": (cuda_conv, {"_conv3x3_kernel": cuda_conv.conv3x3_plain},
                lambda x, w, b: cuda_conv.conv3x3(x, w, b, "reflect", True),
                lambda x, w, b: cuda_conv.conv3x3_plain(x, w, b, "reflect", True),
@@ -154,7 +168,7 @@ def _as_on_the_card(monkeypatch, key, dtype):
     return wrapper, plain, inputs
 
 
-@pytest.mark.parametrize("key", ["K1", "K2", "K3", "K4", "K5"])
+@pytest.mark.parametrize("key", ["K1", "K2", "K3", "K3a", "K4", "K4s", "K5"])
 def test_kernel_function_gradcheck(monkeypatch, key):
     """Each wrapper's Function, with its plain version as the forward,
     passes ``gradcheck`` in float64 (fast mode: random projections of the
@@ -164,7 +178,7 @@ def test_kernel_function_gradcheck(monkeypatch, key):
                                     rtol=1e-3)
 
 
-@pytest.mark.parametrize("key", ["K1", "K2", "K3", "K4", "K5"])
+@pytest.mark.parametrize("key", ["K1", "K2", "K3", "K3a", "K4", "K4s", "K5"])
 def test_kernel_function_grads_equal_plain_autograd(monkeypatch, key):
     """In f32, the Function's gradients are autograd's of the plain version
     bit for bit: its backward recomputes the same function on the same
@@ -201,19 +215,84 @@ def test_apply_kernel_calls_the_forward_directly_without_grad():
 
 @pytest.mark.parametrize("route", ["K3a", "K6", "K4s"])
 def test_variant_routes_refuse_grad_on_the_card(monkeypatch, route):
-    """The variant routes have no backward: where the tensors would reach
-    the kernel and one requires a gradient, the wrapper raises before any
-    launch (``on_cpu`` is made to answer False, as for a CUDA tensor)."""
+    """On the card (``on_cpu`` made to answer False, as for a CUDA tensor)
+    the variant routes take a gradient where the JAX package gives one: K3a
+    (``pallas_ista2``'s ``custom_vjp``) and the K4s route
+    ``instance_norm_from_stats`` (``instance_norm_statskernel``'s) build
+    their ``KernelFunction`` (equal to autograd of the plain version and
+    ``gradcheck``-ed in ``test_kernel_function_*``). K6, which has no
+    ``custom_vjp`` in the JAX package, and the K4s statistics on their own
+    raise before any launch."""
     w = tuple(torch.zeros(s, requires_grad=True) for s in
               ((16, 32, 3, 3), (16,), (32, 16, 3, 3), (32,), (32,)))
     x1, z = torch.zeros(1, 16, 4, 4), torch.zeros(1, 32, 4, 4)
-    mod, call = {"K3a": (cuda_ista2, lambda: cuda_ista2.fused_ista_v2(w, x1, z, 1)),
-                 "K6": (cuda_ista, lambda: cuda_ista.fused_ista(w, x1, z, 1)),
-                 "K4s": (cuda_norm, lambda: cuda_norm.instance_norm_stats(
-                     torch.zeros(1, 4, 4, 4, requires_grad=True)))}[route]
+    x = torch.zeros(1, 4, 4, 4, requires_grad=True)
+    mod = {"K3a": cuda_ista2, "K6": cuda_ista, "K4s": cuda_norm}[route]
     monkeypatch.setattr(mod, "on_cpu", lambda t: False)
-    with pytest.raises(RuntimeError, match="no backward"):
-        call()
+    if route == "K6":
+        with pytest.raises(RuntimeError, match="no backward"):
+            cuda_ista.fused_ista(w, x1, z, 1)
+        return
+    if route == "K4s":
+        with pytest.raises(RuntimeError, match="no backward"):
+            cuda_norm.instance_norm_stats(x)
+    monkeypatch.setattr(mod, *{"K3a": ("_fused_ista_v2_kernel", cuda_ista2.ista_loop_plain),
+                               "K4s": ("instance_norm_stats",
+                                       cuda_norm.instance_norm_stats_plain)}[route])
+    out = (cuda_ista2.fused_ista_v2(w, x1, z, 1) if route == "K3a"
+           else cuda_norm.instance_norm_from_stats(x, relu=True))
+    assert type(out.grad_fn).__name__ == "KernelFunctionBackward"
+    assert out.grad_fn.kernel == route
+
+
+@pytest.mark.parametrize("route", ["K3a", "K4s"])
+def test_variant_route_grads_match_jax(monkeypatch, route):
+    """The port's gradient through K3a and the K4s route (as on the card,
+    each kernel's forward swapped for its plain version) against
+    ``jax.grad`` through the JAX package's ``pallas_ista2.fused_ista_v2``
+    and ``pallas_norm.instance_norm_statskernel`` (interpret mode, as its
+    own tests run them), to 1e-5 of each gradient's largest magnitude."""
+    from cista_flow_tpu.nn import layers as JL
+    from cista_flow_tpu.ops import pallas_ista2 as JPI
+    from cista_flow_tpu.ops import pallas_norm as JPN
+    rng = np.random.default_rng(31)
+    if route == "K4s":
+        x = (rng.standard_normal((2, 8, 16, 32)) + 0.3).astype(np.float32)
+        cot = rng.standard_normal(x.shape).astype(np.float32)
+        ref = jax.grad(lambda a: jnp.sum(JPN.instance_norm_statskernel(a, 1e-5, True, True)
+                                         * cot))(jnp.asarray(x))
+        monkeypatch.setattr(cuda_norm, "on_cpu", lambda t: False)
+        monkeypatch.setattr(cuda_norm, "instance_norm_stats", cuda_norm.instance_norm_stats_plain)
+        xt = nchw(x).requires_grad_(True)
+        (cuda_norm.instance_norm_from_stats(xt, relu=True) * nchw(cot)).sum().backward()
+        got, want = [nhwc(xt.grad)], [np.asarray(ref)]
+    else:
+        c = 32
+        params = jax.tree_util.tree_map(
+            np.asarray, JL.ista_block_init(jax.random.PRNGKey(4), base_channels=c))
+        params["Lambda"] = np.full_like(params["Lambda"], 0.02)
+        x1 = rng.standard_normal((1, 8, 16, c)).astype(np.float32)
+        z = (0.1 * rng.standard_normal((1, 8, 16, 2 * c))).astype(np.float32)
+        assert JPI.supported(x1.shape, z.shape)
+        cot = rng.standard_normal(z.shape).astype(np.float32)
+        jp = jax.tree_util.tree_map(jnp.asarray, params)
+        ref = jax.grad(lambda p, a, b: jnp.sum(JPI.fused_ista_v2(p, a, b, 2) * cot),
+                       argnums=(0, 1, 2))(jp, jnp.asarray(x1), jnp.asarray(z))
+        monkeypatch.setattr(cuda_ista2, "on_cpu", lambda t: False)
+        monkeypatch.setattr(cuda_ista2, "_fused_ista_v2_kernel", cuda_ista2.ista_loop_plain)
+        w = [torch.tensor(np.transpose(params[k]["w"], (3, 2, 0, 1))) if i % 2 == 0
+             else torch.tensor(params[k]["b"]) for i, k in enumerate(("D", "D", "P", "P"))]
+        w.append(torch.tensor(params["Lambda"].reshape(-1)))
+        ts = [t.clone().requires_grad_(True) for t in (*w, nchw(x1), nchw(z))]
+        (cuda_ista2.fused_ista_v2(tuple(ts[:5]), ts[5], ts[6], 2) * nchw(cot)).sum().backward()
+        jg, (jx1, jz) = ref[0], ref[1:]
+        got = [t.grad.numpy() for t in ts[:5]] + [nhwc(ts[5].grad), nhwc(ts[6].grad)]
+        want = [np.transpose(np.asarray(jg["D"]["w"]), (3, 2, 0, 1)), np.asarray(jg["D"]["b"]),
+                np.transpose(np.asarray(jg["P"]["w"]), (3, 2, 0, 1)), np.asarray(jg["P"]["b"]),
+                np.asarray(jg["Lambda"]).reshape(-1), np.asarray(jx1), np.asarray(jz)]
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * float(np.abs(b).max()))
 
 
 def test_weight_cache_sees_the_optimizer_step():
