@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (cista_flow_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only | --train-only | --pretrain-only | --dp-only]
 
 Phases (any failure raises and the exit code is non-zero):
  1. the card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -118,7 +118,23 @@ Phases (any failure raises and the exit code is non-zero):
     (d) a reduced ``sim_flow_quality`` (``FLOW_SMOKE``) whose trained EPE
     must be below the untrained one's, its checkpoint then loaded through
     ``--path_to_flownet`` into a one-epoch ``sim_quality`` of cista-eiflow.
-    ``--train-only`` runs the build, the kernel checks and phases 9 to 11;
+12. data-parallel training (``data_parallel``): (a) two ranks on the one
+    card over gloo (NCCL refuses two ranks on one card; a correctness
+    check, not a speed figure): cista-eiflow (6,5) from the sim40 anchor at
+    180x240, one f32 step, T = 2, global batch 2, in phase 2 and phase 3's
+    flow half, against one process on the global batch on the card (loss,
+    ``leaf_report``, BN running statistics, both ranks' states the same,
+    launches per rank ``train_launches``); bf16, T = 10, global batch 4, 3
+    steps: device ms per step per rank, busy share, peak memory, launches;
+    (b) ``python -m cista_flow_torch.train --distributed`` (NCCL, a rank
+    per card) for one epoch and its exact resume for a second, one writer,
+    the resumed epoch traced: the prefetcher's copies on a side stream;
+    (c) with two cards or more, K4 and K5 on cuda:1 from a thread whose
+    current device is cuda:0 (the launches' device guard), then (a)'s
+    checks with two ranks on two cards over NCCL; on one card a line says
+    so.
+    ``--train-only`` runs the build, the kernel checks and phases 9 to 12;
+    ``--dp-only`` the build and phase 12;
     ``--pretrain-only`` the build, (c) and phase 11. ``--grad-sources``
     (not part of the smoke) builds and then compares the card's f32
     pretraining gradients and the CPU's with an f64 evaluation under
@@ -131,6 +147,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -209,7 +226,8 @@ def main(argv) -> int:
         print("chip_smoke: cista_flow_torch/ not found beside this script",
               file=sys.stderr)
         return 2
-    modes = ("--kernels-only", "--train-only", "--pretrain-only", "--grad-sources")
+    modes = ("--kernels-only", "--train-only", "--pretrain-only", "--grad-sources",
+             "--dp-only")
     if argv not in ([], *([m] for m in modes)):
         print(f"usage: chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -225,13 +243,9 @@ def main(argv) -> int:
           f"{torch.__version__}, cuda {torch.version.cuda}")
 
     # ---- 2. build ---------------------------------------------------------
-    from cista_flow_torch.ops import (cuda_aug, cuda_build, cuda_conv, cuda_corr, cuda_ista,
-                                      cuda_ista2, cuda_norm)
+    from cista_flow_torch.ops import cuda_build
     # each wrapper's launch counter; K3a and K4s share K3's and K4's library
-    counters = {"K1": cuda_corr.KERNEL, "K2": cuda_aug.KERNEL, "K3": cuda_ista2.KERNEL,
-                "K3a": cuda_ista2.KERNEL_V2, "K4": cuda_norm.KERNEL,
-                "K4s": cuda_norm.KERNEL_STATS, "K5": cuda_conv.KERNEL,
-                "K6": cuda_ista.KERNEL}
+    counters = cuda_build.kernel_counters()
     sources = [k for k in counters.values() if isinstance(k, cuda_build.Kernel)]
     secs = cuda_build.build_all(sources)
     print(f"build: {secs:.1f} s for {len(sources)} sources, {len(counters)} kernels")
@@ -244,24 +258,26 @@ def main(argv) -> int:
     # ---- 3. kernels against their plain versions --------------------------
     # (the f32 plain versions are cuDNN convs: held in full f32 for the phase)
     checks = {}
-    if argv != ["--pretrain-only"]:
+    if argv not in (["--pretrain-only"], ["--dp-only"]):
         with cudnn_fp32():
             checks = kernel_checks(torch)
     # phase 11 (c): the kernels at the pretraining shapes, K3a and K4s with gradients
-    for key, rows in kernels_at_pretrain_shapes(torch).items():
-        checks.setdefault(key, {}).setdefault("shapes", []).extend(rows)
+    if argv != ["--dp-only"]:
+        for key, rows in kernels_at_pretrain_shapes(torch).items():
+            checks.setdefault(key, {}).setdefault("shapes", []).extend(rows)
     torch.cuda.synchronize()
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     if argv == ["--kernels-only"]:
         return 0
 
-    # ---- 4.-11. the main paths, at the process's own TF32 flags ----------
+    # ---- 4.-12. the main paths, at the process's own TF32 flags ----------
     launches = {k: 0 for k in counters}
     phases = (flagship_path, eraft_path, variant_windows, f32_at_default_flags,
               gate_replay, serving_clis, idnet_path, long_chunks, training_path, train_modes,
-              flow_pretraining)
+              flow_pretraining, data_parallel)
     if argv:
-        phases = phases[-3:] if argv == ["--train-only"] else phases[-1:]
+        phases = {"--train-only": phases[-4:], "--pretrain-only": (flow_pretraining,),
+                  "--dp-only": (data_parallel,)}[argv[0]]
     for phase in phases:
         t_phase = time.perf_counter()
         for key, n in phase(torch, repo, counters).items():
@@ -270,11 +286,11 @@ def main(argv) -> int:
         print(f"{phase.__name__}: {now - t_phase:.1f} s, done at {now - t_start:.1f} s")
     idle = [k for k, n in launches.items() if n == 0]
     if argv:
-        path = ("K1", "K2", "K4", "K5") + (("K3",) if argv == ["--train-only"] else ())
+        path = ("K1", "K2", "K4", "K5") + (("K3",) if argv != ["--pretrain-only"] else ())
         idle = [k for k in path if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")
-    if argv == ["--pretrain-only"]:
+    if argv in (["--pretrain-only"], ["--dp-only"]):
         return 0
 
     rows = []
@@ -2784,6 +2800,247 @@ def flow_pretraining(torch, repo: Path, counters: dict) -> dict:
         for key, n in part(torch, repo, counters).items():
             total[key] += n
         print(f"  {part.__name__}: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# phase 12: f32 (fix, loss_mode, tag) steps of (a) and (c), T = 2, global batch 2
+DP_PHASES = (("flow", "rec", "phase 2"), ("rec", "both", "phase 3 flow half"))
+DP_T, DP_BATCH, DP_BF16_STEPS = 2, 2, 3
+
+
+def dp_seq(torch, repo: Path, t_len: int, batch: int) -> str:
+    """The first ``batch`` sequences of ``t_len`` steps as a file the ranks
+    load (their global batch)."""
+    path = repo / "build" / "dp" / f"seq_t{t_len}_b{batch}.pt"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(train_batch(torch, repo, t_len, batch, "cpu"), path)
+    return str(path)
+
+
+def dp_against_one_process(torch, repo: Path, device: str, backend, tag: str) -> dict:
+    """Two data-parallel ranks (``parallel.check.train_step_rank``) on
+    ``device`` over ``backend`` against one process on cuda:0 on the global
+    batch: cista-eiflow (6,5) from the sim40 anchor at 180x240, one f32
+    step, T = 2, global batch 2 (local 1), in phase 2 and phase 3's flow
+    half (cnet's BatchNorm trains): the loss to 1e-5 relative, every
+    gradient leaf by ``leaf_report`` at 1e-3, the BN running statistics to
+    1e-4 of their largest magnitude, both ranks' states bit for bit the
+    same, and each rank's launches ``train_launches``. Then bf16, T = 10,
+    global batch 4, 3 steps in phase 3's flow half: device ms per step per
+    rank (steps 2 and 3), busy share of a traced step, peak memory,
+    launches per rank and step. Returns the ranks' launches."""
+    from cista_flow_torch import weights
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.models import composite
+    from cista_flow_torch.parallel import check
+    from cista_flow_torch.parallel import train_step as TS
+
+    iters, depth, anchor = TRAIN_POINT
+    cfg = Config(image_dim=(H, W), depth=depth, flow_iters=iters)
+    bf16 = Config(image_dim=(H, W), depth=depth, flow_iters=iters, dtype="bfloat16")
+    f32_seq = dp_seq(torch, repo, DP_T, DP_BATCH)
+    jobs = [dict(cfg=cfg, weights=str(repo / anchor), seq=f32_seq, fix=fix, loss_mode=mode,
+                 use_gt_flow=False) for fix, mode, _ in DP_PHASES]
+    jobs.append(dict(cfg=bf16, weights=str(repo / anchor),
+                     seq=dp_seq(torch, repo, TRAIN_T, TRAIN_BATCH), fix="rec", loss_mode="both",
+                     use_gt_flow=False, steps=DP_BF16_STEPS, timed=True))
+    t0 = time.perf_counter()
+    ranks = check.run(check.train_step_rank, 2, device, jobs, str(repo / "build" / "dp" / "out"),
+                      backend=backend)
+    print(f"  {tag}: two ranks ran {len(jobs)} jobs in {time.perf_counter() - t0:.1f} s")
+    total = {}
+    sd = weights.load_state_dict(str(repo / anchor))
+    seq = {k: v.to("cuda:0") for k, v in torch.load(f32_seq, weights_only=True).items()}
+    for (fix, mode, phase), r0, r1 in zip(DP_PHASES, ranks[0], ranks[1]):
+        name = f"{tag}, {phase}, f32 T={DP_T}, global batch {DP_BATCH}"
+        model = composite.init(cfg, device="cpu")
+        model.load_reference_state(sd)
+        model.to("cuda:0")
+        loss = float(TS.make_train_step(cfg, TS.make_optimizer(model, 1e-4), mode, fix,
+                                        False)(model, seq))
+        rel = abs(r0["losses"][0] - loss) / abs(loss)
+        print(f"  {name}: loss two ranks {r0['losses'][0]:.7f}, one process {loss:.7f}, "
+              f"relative difference {rel:.3e} (tol 1e-5)")
+        if rel > 1e-5 or r0["losses"] != r1["losses"] or r0["digest"] != r1["digest"]:
+            raise AssertionError(f"{name}: loss {rel}, or the ranks' states differ")
+        ref = {k: p.grad.detach().float().cpu() for k, p in model.named_parameters()
+               if p.grad is not None}
+        if sorted(ref) != sorted(r0["grads"]):
+            raise AssertionError(f"{name}: the ranks' gradient leaves are not the process's")
+        leaf_report(name, r0["grads"], ref, 1e-3, fix == "rec")
+        worst = 0.0
+        for k, v in model.state_dict().items():
+            if "running" in k:
+                v = v.cpu()
+                worst = max(worst, float((r0["state"][k] - v).abs().max() / v.abs().max()))
+        print(f"    BN running statistics: largest difference {worst:.3e} of the "
+              "buffer's largest magnitude (tol 1e-4)")
+        if worst > 1e-4:
+            raise AssertionError(f"{name}: BN running statistics differ by {worst}")
+        for r, res in enumerate((r0, r1)):
+            expect_launches(f"{name}, rank {r}", res["launches"][0],
+                            train_launches(mode, iters, DP_T))
+    r0, r1 = ranks[0][-1], ranks[1][-1]
+    for r, res in enumerate((r0, r1)):
+        for i, got in enumerate(res["launches"]):
+            expect_launches(f"{tag}, bf16 T={TRAIN_T}, rank {r}, step {i + 1}", got,
+                            train_launches("both", iters, TRAIN_T))
+        if not np.isfinite(res["losses"]).all():
+            raise AssertionError(f"{tag}: bf16 losses {res['losses']}")
+        print(f"  {tag}, bf16 (6,5), T={TRAIN_T}, global batch {TRAIN_BATCH} (local "
+              f"{TRAIN_BATCH // 2}), phase 3 flow half, rank {r}: losses "
+              + ", ".join(f"{x:.4f}" for x in res["losses"]) + "; device ms per step "
+              + ", ".join(f"{x:.1f}" for x in res["ms"]) + f"; busy {100 * res['busy']:.1f}%; "
+              f"peak memory {res['peak_gib']:.2f} GiB")
+    for rank in ranks:
+        for res in rank:
+            for got in res["launches"]:
+                for key, n in got.items():
+                    total[key] = total.get(key, 0) + n
+    return total
+
+
+def copy_streams(trace_path: str) -> tuple:
+    """(the streams of the pinned host-to-device copies, the stream most
+    kernels ran on) in a chrome trace."""
+    import collections
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    copies = {e["args"].get("stream") for e in events
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")
+              and "Pinned" in e.get("name", "")}
+    kernels = collections.Counter(e["args"].get("stream") for e in events
+                                  if e.get("cat") == "kernel")
+    return copies, kernels.most_common(1)[0][0]
+
+
+def train_cli_distributed(torch, repo: Path, counters: dict) -> dict:
+    """Phase 12 (b): ``python -m cista_flow_torch.train --distributed``
+    (NCCL, a rank per card) trains one epoch (phase 1) of the simulated set
+    at (6,5) in bf16 from the sim40 anchor, T = 10, a host batch of 4 (of
+    the card count where 4 does not split over it), with full-state saves:
+    exit 0, one log, one ``.pth.tar`` and one full state. Then it resumes
+    (``--load_epoch_for_train -1``) for epoch 2 (phase 2): on a one-card
+    machine in this process under the profiler, whose trace must show the
+    prefetcher's pinned copies on another stream than the step's kernels;
+    elsewhere as a command, followed by a traced one-process epoch."""
+    import contextlib
+    import io
+    import shutil
+
+    from cista_flow_torch import train
+
+    cards = torch.cuda.device_count()
+    batch = TRAIN_BATCH if TRAIN_BATCH % cards == 0 else cards
+    data = repo / "build" / "train_data"
+    if cards > TRAIN_VIDEOS:
+        from cista_flow_torch.data.sim import write_train_dataset
+        data = repo / "build" / "dp_train_data"
+        if not (data / "train_e2v_estflow.txt").exists():
+            write_train_dataset(str(data), cards, TRAIN_FRAMES, H, W, seed=0)
+    out = repo / "build" / "dp_models"
+    shutil.rmtree(out, ignore_errors=True)
+    iters, depth, anchor = TRAIN_POINT
+    args = ["--path_to_train_data", str(data), "--path_to_model", str(out), "--path_to_e2vflow",
+            str(repo / anchor), "-d", str(depth), "--flow_iters", str(iters), "-s",
+            str(TRAIN_T), "--batch_size", str(batch), "--flow_epoch", "1", "--rec_epoch", "1",
+            "--dtype", "bfloat16", "--orbax_ckpt", "--distributed"]
+    name = train.model_name_from_cfg(train.parse_args(args)[0])
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "cista_flow_torch.train", *args, "--epochs", "1"],
+                         cwd=repo, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    print(f"  (b) train --distributed, {cards} card(s), epoch 1: exit {run.returncode} in "
+          f"{secs:.1f} s; " + " | ".join(line for line in run.stdout.splitlines()
+                                          if "loss" in line or "saved" in line))
+    if run.returncode != 0:
+        raise AssertionError(f"train --distributed failed:\n{run.stdout[-3000:]}\n"
+                             f"{run.stderr[-3000:]}")
+    saved = sorted(os.listdir(out / name))
+    if run.stdout.count("saved ") != 1 or saved != [f"{name}_1.pth.tar", "full_state"]:
+        raise AssertionError(f"(b) not one writer: {saved}; {run.stdout.count('saved ')} saves "
+                             "logged")
+
+    resume = args + ["--epochs", "2", "--load_epoch_for_train", "-1"]
+    total = {k: 0 for k in counters}
+    log = io.StringIO()
+    trace = str(repo / "build" / "dp" / "epoch_trace.json")
+    t0 = time.perf_counter()
+    if cards == 1:
+        traced = resume
+    else:
+        run = subprocess.run([sys.executable, "-m", "cista_flow_torch.train", *resume],
+                             cwd=repo, capture_output=True, text=True)
+        if run.returncode != 0:
+            raise AssertionError(f"the resume failed:\n{run.stderr[-3000:]}")
+        log.write(run.stdout)
+        traced = [a for a in args if a != "--distributed"] + [
+            "--path_to_model", str(out / "one_process"), "--epochs", "1"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with contextlib.redirect_stdout(log):
+            _, got = counted(counters, lambda: train.main(traced))
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    for key in total:
+        total[key] += got[key]
+    print(f"  (b) resume, epoch 2: {time.perf_counter() - t0:.1f} s; "
+          + " | ".join(line for line in log.getvalue().splitlines()
+                       if "Resumed" in line or "loss" in line or "saved" in line))
+    if "Resumed exactly from full_state step 1" not in log.getvalue():
+        raise AssertionError("(b) did not resume from the epoch-1 full state")
+    saved = sorted(os.listdir(out / name))
+    if saved != [f"{name}_1.pth.tar", f"{name}_2.pth.tar", "full_state"]:
+        raise AssertionError(f"(b) after the resume: {saved}")
+    copies, main_stream = copy_streams(trace)
+    print(f"  (b) traced epoch: the prefetcher's pinned copies on stream(s) {sorted(copies)}, "
+          f"the kernels mostly on stream {main_stream}; launches {got}")
+    if not copies or main_stream in copies:
+        raise AssertionError("the prefetcher's copies are not on a side stream")
+    return total
+
+
+def guard_on_second_card(torch) -> None:
+    """Phase 12 (c): from this thread, whose current device is cuda:0, K4
+    (f32) and K5 (bf16, the wgmma tile, which reads ``cudaGetDevice``) on
+    tensors on cuda:1 against their plain versions there."""
+    from cista_flow_torch.ops import cuda_conv, cuda_norm
+    dev = torch.device("cuda", 1)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(2, 64, 96, 128, generator=gen, device=dev)
+    w = torch.randn(64, 64, 3, 3, generator=gen, device=dev) * (9 * 64) ** -0.5
+    b = torch.randn(64, generator=gen, device=dev) * 0.05
+    if torch.cuda.current_device() != 0:
+        raise AssertionError("the guard check needs cuda:0 current")
+    ref = cuda_norm.instance_norm_plain(x, relu=True)
+    compare(torch, "(c) K4 on cuda:1 from cuda:0", "float32",
+            cuda_norm.instance_norm_fused(x, 1e-5, True), ref, f32_tol(ref))
+    xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+    ref = cuda_conv.conv3x3_plain(xb.float(), wb.float(), bb.float(), "zeros", True)
+    compare(torch, "(c) K5 bf16 on cuda:1 from cuda:0", "bfloat16",
+            cuda_conv.conv3x3(xb, wb, bb, "zeros", True), ref, bf16_tol(ref, 8))
+    torch.cuda.synchronize(dev)
+
+
+def data_parallel(torch, repo: Path, counters: dict) -> dict:
+    """Phase 12: data-parallel training. See the module's docstring."""
+    total = {k: 0 for k in counters}
+    parts = [("(a) 2 ranks on cuda:0 over gloo",
+              lambda: dp_against_one_process(torch, repo, "cuda:0", "gloo",
+                                             "(a) 2 ranks, cuda:0, gloo")),
+             ("(b) train --distributed", lambda: train_cli_distributed(torch, repo, counters))]
+    if torch.cuda.device_count() >= 2:
+        parts.append(("(c) 2 ranks on 2 cards over NCCL", lambda: (
+            guard_on_second_card(torch),
+            dp_against_one_process(torch, repo, "cuda", None, "(c) 2 ranks, 2 cards, nccl"))[1]))
+    else:
+        parts.append(("(c) two ranks across cards over NCCL: not run, this machine has one card",
+                      dict))
+    for tag, part in parts:
+        t0 = time.perf_counter()
+        for key, n in part().items():
+            total[key] += n
+        print(f"  {tag}: {time.perf_counter() - t0:.1f} s")
     return total
 
 

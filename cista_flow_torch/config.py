@@ -5,7 +5,8 @@ A copy of ``cista_flow_tpu.configs.Config`` (same names, same defaults)
 without the TPU knobs; the port imports nothing of the JAX package.
 ``add_args``/``from_args`` keep the reference's flag names and short forms
 (ref: utils/configs.py:4-165) and add ``--device``. The JAX package's
-TPU-only flags (``TPU_ONLY_FLAGS``) are not accepted. The dataclass's own
+TPU-only flags (``TPU_ONLY_FLAGS``) are not accepted; the trainer's parser
+takes its mesh flags (``MESH_FLAGS``). The dataclass's own
 ``model_mode`` default is ``cista-eiflow``; the flag's, as in the reference,
 is ``cista-lstc``.
 """
@@ -15,10 +16,13 @@ import argparse
 import dataclasses
 from dataclasses import dataclass
 
-# the JAX package's mesh and Pallas-routing flags, which have no meaning on
-# the card (cista_flow_tpu/configs.py:242-262)
-TPU_ONLY_FLAGS = ("--mesh_shape", "--mesh_axes", "--serve_pallas", "--train_pallas",
-                  "--encoder_merge", "--corr_fuse_proj", "--eraft_pair_tower")
+# the JAX package's mesh flags: the trainer's own parser takes them (a data
+# axis over cards, ``train.py``); the serving CLIs, which run on one card,
+# refuse them with the Pallas-routing flags, which have no meaning on the
+# card (cista_flow_tpu/configs.py:242-262)
+MESH_FLAGS = ("--mesh_shape", "--mesh_axes")
+TPU_ONLY_FLAGS = MESH_FLAGS + ("--serve_pallas", "--train_pallas", "--encoder_merge",
+                               "--corr_fuse_proj", "--eraft_pair_tower")
 
 
 @dataclass
@@ -64,7 +68,9 @@ class Config:
     is_gt_flow: bool = False
     is_reverse_events: bool = False
     is_bi: bool = False
-    distributed: bool = False
+    distributed: bool = False        # the trainer: data-parallel over every local card
+    mesh_shape: str = "1"            # the trainer: N data-parallel ranks
+    mesh_axes: str = "data"
     num_events: int = 15000
 
     # testing (ref: utils/configs.py; cista_flow_tpu/configs.py:72-86)

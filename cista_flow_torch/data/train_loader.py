@@ -177,13 +177,29 @@ class StackedSequenceLoader:
     """Batches of (T, B, C, H, W) arrays for the BPTT train step. Sequences
     shorter than ``len_sequence`` are dropped, longer ones cut into chunks of
     ``len_sequence`` steps; the chunks are shuffled from ``seed`` and a
-    thread pool decodes a batch's chunks side by side."""
+    thread pool decodes a batch's chunks side by side.
+
+    Data-parallel (cista_flow_tpu/data/train_loader.py:198-226): host
+    ``process_index`` of ``process_count`` reads the round-robin chunk
+    shard ``chunks[process_index::process_count]``, every shard cut to the
+    common batch count (a host with one batch more would wait on a
+    collective the others never reach); ``batch_size`` is the batch of one
+    host. Of each host batch, rank ``local_index`` of the host's
+    ``local_count`` decodes and yields only its contiguous slice of
+    ``batch_size / local_count`` sequences, the slice JAX's
+    ``shard_seq_batch`` puts on the host's ``local_index``-th device."""
 
     def __init__(self, dataset: TrainSequenceDataset, batch_size: int,
                  len_sequence: int, shuffle: bool = True, seed: int = 0,
-                 num_workers: int = 4):
+                 num_workers: int = 4, process_index: int = 0, process_count: int = 1,
+                 local_index: int = 0, local_count: int = 1):
+        if batch_size % local_count:
+            raise ValueError(f"a host batch of {batch_size} does not split over "
+                             f"{local_count} local ranks")
         self.ds = dataset
         self.batch_size = batch_size
+        self.local_batch = batch_size // local_count
+        self.local_start = local_index * self.local_batch
         self.t = len_sequence
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
@@ -193,6 +209,9 @@ class StackedSequenceLoader:
             flat = _flatten(ids)
             for s in range(0, len(flat) - self.t + 1, self.t):
                 self.chunks.append(flat[s:s + self.t])
+        if process_count > 1:
+            n_batches = (len(self.chunks) // process_count) // batch_size
+            self.chunks = self.chunks[process_index::process_count][:n_batches * batch_size]
 
     def __len__(self):
         return len(self.chunks) // self.batch_size
@@ -209,7 +228,8 @@ class StackedSequenceLoader:
             self.rng.shuffle(order)
         bs = self.batch_size
         for i in range(0, len(order) - bs + 1, bs):
-            chunk_ids = [self.chunks[j] for j in order[i:i + bs]]
+            mine = order[i + self.local_start:i + self.local_start + self.local_batch]
+            chunk_ids = [self.chunks[j] for j in mine]
             if self.pool is not None:
                 loaded = list(self.pool.map(self._load_chunk, chunk_ids))
             else:

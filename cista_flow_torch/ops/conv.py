@@ -48,6 +48,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
 
 
 _STATS_FROZEN = 0          # > 0 inside ``frozen_bn_stats``
+_BN_SUM = None             # inside ``global_bn_stats``: the ranks' differentiable sum
 
 
 @contextlib.contextmanager
@@ -65,25 +66,59 @@ def frozen_bn_stats():
         _STATS_FROZEN -= 1
 
 
+@contextlib.contextmanager
+def global_bn_stats(all_reduce_sum):
+    """Inside the block a train-mode ``batch_norm`` takes its statistics
+    over the global batch, whose slices the data-parallel ranks hold:
+    ``all_reduce_sum`` (``parallel.mesh.all_reduce_sum``) sums a tensor
+    over the ranks, differentiably. Process-wide, as ``frozen_bn_stats``:
+    a remat recompute on autograd's thread reduces too, and every rank
+    recomputes the same graph in the same order, so the collectives pair
+    up."""
+    global _BN_SUM
+    outer, _BN_SUM = _BN_SUM, all_reduce_sum
+    try:
+        yield
+    finally:
+        _BN_SUM = outer
+
+
+def _batch_stats(xf: torch.Tensor):
+    """(mean, biased variance, n / (n - 1)) per channel of ``xf`` over its n
+    elements of (B, H, W); inside ``global_bn_stats`` over every rank's
+    batch: the sums and counts all-reduced to the mean, then the squared
+    deviations from it to the variance (two passes, as on one process). The
+    global count stays a tensor, so nothing waits on the device."""
+    if _BN_SUM is None:
+        n = xf.numel() // xf.shape[1]
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf - mean[None, :, None, None]).square().mean(dim=(0, 2, 3))
+        return mean, var, n / max(n - 1, 1)
+    count = torch.full((1,), xf.numel() // xf.shape[1], dtype=xf.dtype, device=xf.device)
+    total = _BN_SUM(torch.cat([xf.sum(dim=(0, 2, 3)), count]))
+    n = total[-1]
+    mean = total[:-1] / n
+    var = _BN_SUM((xf - mean[None, :, None, None]).square().sum(dim=(0, 2, 3))) / n
+    return mean, var, n / (n - 1).clamp(min=1)
+
+
 def batch_norm(x: torch.Tensor, bn: torch.nn.BatchNorm2d, eps: float = 1e-5,
                momentum: float = 0.1) -> torch.Tensor:
     """BatchNorm2d, in the mode of ``bn.training`` (cista_flow_tpu/ops/conv.py
-    ``batch_norm``). Train: f32 batch statistics over (B, H, W), the biased
-    variance to normalise, and ``bn``'s running statistics updated in place
-    with the unbiased one (momentum 0.1) and ``num_batches_tracked`` by one,
-    as torch's module counts them (not inside ``frozen_bn_stats``). Eval:
-    the running statistics. The statistics and the scale are cast to x's
+    ``batch_norm``). Train: f32 batch statistics over (B, H, W) (over the
+    global batch inside ``global_bn_stats``), the biased variance to
+    normalise, and ``bn``'s running statistics updated in place with the
+    unbiased one (momentum 0.1) and ``num_batches_tracked`` by one, as
+    torch's module counts them (not inside ``frozen_bn_stats``). Eval: the
+    running statistics. The statistics and the scale are cast to x's
     dtype, as the JAX package casts them."""
     if bn.training:
-        xf = at_least_f32(x)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf - mean[None, :, None, None]).square().mean(dim=(0, 2, 3))
-        n = x.numel() // x.shape[1]
+        mean, var, bessel = _batch_stats(at_least_f32(x))
         if not _STATS_FROZEN:
             with torch.no_grad():
                 bn.running_mean.copy_((1 - momentum) * bn.running_mean + momentum * mean)
                 bn.running_var.copy_((1 - momentum) * bn.running_var
-                                     + momentum * (var * (n / max(n - 1, 1))))
+                                     + momentum * (var * bessel))
                 if bn.num_batches_tracked is not None:
                     bn.num_batches_tracked.add_(1)
     else:

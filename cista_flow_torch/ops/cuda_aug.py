@@ -16,7 +16,7 @@ import torch
 
 from . import warp as _warp
 from .autograd import apply_kernel
-from .cuda_build import DTYPE_CODES, F, I, Kernel, P, check_cuda, on_cpu, stream_ptr
+from .cuda_build import DTYPE_CODES, F, I, Kernel, P, check_cuda, on_cpu
 
 KERNEL = Kernel("warp.cu", {"cista_warp_reflect": [I, P, P, P, P, I, I, I, I, F, P]})
 
@@ -67,8 +67,7 @@ def _warp_kernel(img, flow, gate, sign):
     if gate is not None and gate.device != img.device:
         raise ValueError(f"warp_reflect: gate on {gate.device}, image on {img.device}")
     out = torch.empty_like(img)
-    with torch.cuda.device(img.device):
-        KERNEL.launch("cista_warp_reflect", DTYPE_CODES[img.dtype], img.data_ptr(),
-                      flow.data_ptr(), None if gate is None else gate.data_ptr(),
-                      out.data_ptr(), b, c, h, w, float(sign), stream_ptr(img.device))
+    KERNEL.launch("cista_warp_reflect", DTYPE_CODES[img.dtype], img.data_ptr(),
+                  flow.data_ptr(), None if gate is None else gate.data_ptr(),
+                  out.data_ptr(), b, c, h, w, float(sign), device=img.device)
     return out

@@ -6,6 +6,8 @@ into ``build/kernels/<name>-<hash>.so`` at the repo root (the hash covers the
 source and every ``*.cuh`` header, so an edited source rebuilds), and loaded with
 ctypes. Device pointers and the stream go in as ``c_void_p``; each C
 function returns ``cudaGetLastError()`` and a non-zero code raises.
+``Kernel.call`` is the one place a C function is called: with the tensors'
+device current and that device's stream.
 
 Nothing here runs at import: the CPU tests import every wrapper module on a
 host with no ``nvcc``.
@@ -102,17 +104,21 @@ class Kernel:
             self._lib = lib
         return self._lib
 
-    def call(self, fn: str, *args) -> None:
-        """Run one exported function; raise on a non-zero CUDA error."""
+    def call(self, fn: str, *args, device: torch.device) -> None:
+        """Run one exported function on the tensors' ``device``: the call
+        runs with ``device`` the thread's current device (the sources read
+        ``cudaGetDevice``) and gets that device's current stream as its
+        last argument. Raise on a non-zero CUDA error."""
         lib = self.lib()
-        rc = getattr(lib, fn)(*args)
+        with torch.cuda.device(device):
+            rc = getattr(lib, fn)(*args, stream_ptr(device))
         if rc != 0:
             msg = lib.cista_error_string(rc).decode()
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc} ({msg})")
 
-    def launch(self, fn: str, *args) -> None:
+    def launch(self, fn: str, *args, device: torch.device) -> None:
         """``call`` and count it as one launch of this kernel."""
-        self.call(fn, *args)
+        self.call(fn, *args, device=device)
         self.launches += 1
 
 
@@ -125,17 +131,28 @@ class SharedKernel:
         self.kernel = kernel
         self.launches = 0
 
-    def call(self, fn: str, *args) -> None:
-        self.kernel.call(fn, *args)
+    def call(self, fn: str, *args, device: torch.device) -> None:
+        self.kernel.call(fn, *args, device=device)
 
-    def launch(self, fn: str, *args) -> None:
-        self.kernel.call(fn, *args)
+    def launch(self, fn: str, *args, device: torch.device) -> None:
+        self.kernel.call(fn, *args, device=device)
         self.launches += 1
+
+
+def kernel_counters() -> dict:
+    """Each kernel's launch counter, by its key in the kernel table (K3a and
+    K4s count launches of K3's and K4's library)."""
+    from . import cuda_aug, cuda_conv, cuda_corr, cuda_ista, cuda_ista2, cuda_norm
+    return {"K1": cuda_corr.KERNEL, "K2": cuda_aug.KERNEL, "K3": cuda_ista2.KERNEL,
+            "K3a": cuda_ista2.KERNEL_V2, "K4": cuda_norm.KERNEL,
+            "K4s": cuda_norm.KERNEL_STATS, "K5": cuda_conv.KERNEL, "K6": cuda_ista.KERNEL}
 
 
 def build_all(kernels) -> float:
     """Compile every kernel's source in parallel (one nvcc each, all
-    started together), then load them. Returns the seconds taken."""
+    started together; a ``SharedKernel`` has none of its own), then load
+    them. Returns the seconds taken."""
+    kernels = [k for k in kernels if isinstance(k, Kernel)]
     t0 = time.perf_counter()
     jobs = [(k, k.start_build()) for k in kernels]
     for k, job in jobs:

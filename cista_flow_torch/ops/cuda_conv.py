@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from .autograd import apply_kernel
 from .conv_tile import cast_cached, packed_weights
-from .cuda_build import DTYPE_CODES, I, Kernel, P, check_cuda, on_cpu, stream_ptr
+from .cuda_build import DTYPE_CODES, I, Kernel, P, check_cuda, on_cpu
 
 KERNEL = Kernel("conv3x3.cu", {"cista_conv3x3": [I, I, I, I, P, P, P, P, I, I, I, I, P]})
 # the square widths ops/conv.conv2d routes here (pallas_conv.CHANNELS)
@@ -69,9 +69,8 @@ def _conv3x3_kernel(x, w, b, padding_mode, relu):
     b = cast_cached(b, x.dtype) if b is not None else None
     check_cuda("conv3x3", (x.dtype,), x, w, *(() if b is None else (b,)))
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        KERNEL.launch("cista_conv3x3", DTYPE_CODES[x.dtype],
-                      int(padding_mode == "reflect"), int(relu), int(packed), x.data_ptr(),
-                      w.data_ptr(), b.data_ptr() if b is not None else None,
-                      out.data_ptr(), bsz, c, h, wd, stream_ptr(x.device))
+    KERNEL.launch("cista_conv3x3", DTYPE_CODES[x.dtype],
+                  int(padding_mode == "reflect"), int(relu), int(packed), x.data_ptr(),
+                  w.data_ptr(), b.data_ptr() if b is not None else None,
+                  out.data_ptr(), bsz, c, h, wd, device=x.device)
     return out

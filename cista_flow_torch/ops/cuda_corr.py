@@ -17,7 +17,7 @@ from .autograd import apply_kernel, at_least_f32
 from .conv_tile import cast_cached
 from .corr import CorrPyramid, lookup_corr
 from .corr_tile import packed_corr_weights
-from .cuda_build import DTYPE_CODES, I, Kernel, P, check_cuda, on_cpu, stream_ptr
+from .cuda_build import DTYPE_CODES, I, Kernel, P, check_cuda, on_cpu
 
 KERNEL = Kernel("corr.cu", {"cista_corr_lookup": [I, I, P, P, P, P, I, I, I, I,
                                                   I, I, I, I, P, P, P, P, I, I, P]})
@@ -85,10 +85,9 @@ def _lookup_kernel(pyr: CorrPyramid, coords, weight, bias):
         out = torch.empty((b, LEVELS * 81, h1, w1), dtype=dt, device=coords.device)
     hs = [lv.shape[1] for lv in levels]
     ws = [lv.shape[2] for lv in levels]
-    with torch.cuda.device(coords.device):
-        KERNEL.launch("cista_corr_lookup", DTYPE_CODES[dt], int(proj),
-                      *[lv.data_ptr() for lv in levels], *hs, *ws,
-                      coords.data_ptr(), wt.data_ptr() if proj else None,
-                      bias.data_ptr() if proj else None, out.data_ptr(),
-                      n, h1 * w1, stream_ptr(coords.device))
+    KERNEL.launch("cista_corr_lookup", DTYPE_CODES[dt], int(proj),
+                  *[lv.data_ptr() for lv in levels], *hs, *ws,
+                  coords.data_ptr(), wt.data_ptr() if proj else None,
+                  bias.data_ptr() if proj else None, out.data_ptr(),
+                  n, h1 * w1, device=coords.device)
     return out

@@ -19,7 +19,7 @@ import torch
 
 from .autograd import refuse_grad
 from .conv_tile import packed_weights
-from .cuda_build import DTYPE_CODES, I, Kernel, P, on_cpu, stream_ptr
+from .cuda_build import DTYPE_CODES, I, Kernel, P, on_cpu
 from .cuda_conv import uses_mma_tile
 from .cuda_ista2 import check_ista_args, ista_loop_plain
 
@@ -41,21 +41,20 @@ def fused_ista(w, x1: torch.Tensor, z: torch.Tensor, depth: int) -> torch.Tensor
     dw, db, pw, pb, lam = w
     b, c, h, wd = x1.shape
     zn = torch.empty_like(z)           # the result
-    with torch.cuda.device(x1.device):
-        if uses_mma_tile(x1.dtype, c):
-            grouped = dict(dtype=x1.dtype, device=x1.device)
-            x1g = torch.empty((b, c // 8, h, wd, 8), **grouped)
-            xd = torch.empty_like(x1g)                                # x1 - D(z)
-            zg = torch.empty((b, 2 * c // 8, h, wd, 8), **grouped)    # z, updated in place
-            KERNEL.launch("cista_ista_loop_mma", x1.data_ptr(), z.data_ptr(),
-                          packed_weights(dw, x1.dtype).data_ptr(), db.data_ptr(),
-                          packed_weights(pw, x1.dtype).data_ptr(), pb.data_ptr(),
-                          lam.data_ptr(), x1g.data_ptr(), xd.data_ptr(), zg.data_ptr(),
-                          zn.data_ptr(), b, c, h, wd, depth, stream_ptr(x1.device))
-        else:
-            xd = torch.empty_like(x1)  # scratch: x1 - D(z); zn updated in place
-            KERNEL.launch("cista_ista_loop", DTYPE_CODES[x1.dtype], x1.data_ptr(),
-                          z.data_ptr(), dw.data_ptr(), db.data_ptr(), pw.data_ptr(),
-                          pb.data_ptr(), lam.data_ptr(), xd.data_ptr(), zn.data_ptr(),
-                          b, c, h, wd, depth, stream_ptr(x1.device))
+    if uses_mma_tile(x1.dtype, c):
+        grouped = dict(dtype=x1.dtype, device=x1.device)
+        x1g = torch.empty((b, c // 8, h, wd, 8), **grouped)
+        xd = torch.empty_like(x1g)                                # x1 - D(z)
+        zg = torch.empty((b, 2 * c // 8, h, wd, 8), **grouped)    # z, updated in place
+        KERNEL.launch("cista_ista_loop_mma", x1.data_ptr(), z.data_ptr(),
+                      packed_weights(dw, x1.dtype).data_ptr(), db.data_ptr(),
+                      packed_weights(pw, x1.dtype).data_ptr(), pb.data_ptr(),
+                      lam.data_ptr(), x1g.data_ptr(), xd.data_ptr(), zg.data_ptr(),
+                      zn.data_ptr(), b, c, h, wd, depth, device=x1.device)
+    else:
+        xd = torch.empty_like(x1)  # scratch: x1 - D(z); zn updated in place
+        KERNEL.launch("cista_ista_loop", DTYPE_CODES[x1.dtype], x1.data_ptr(),
+                      z.data_ptr(), dw.data_ptr(), db.data_ptr(), pw.data_ptr(),
+                      pb.data_ptr(), lam.data_ptr(), xd.data_ptr(), zn.data_ptr(),
+                      b, c, h, wd, depth, device=x1.device)
     return zn

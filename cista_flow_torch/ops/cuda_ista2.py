@@ -20,8 +20,7 @@ import torch
 from .autograd import apply_kernel
 from .conv import conv2d
 from .conv_tile import packed_weights
-from .cuda_build import (DTYPE_CODES, I, Kernel, P, SharedKernel, check_cuda, on_cpu,
-                         stream_ptr)
+from .cuda_build import DTYPE_CODES, I, Kernel, P, SharedKernel, check_cuda, on_cpu
 from .cuda_conv import uses_mma_tile
 
 KERNEL = Kernel("ista.cu", {"cista_ista_conv": [I, I, P, P, P, P, P, P,
@@ -79,7 +78,7 @@ def _conv(kernel, mode, src, wt, bias, aux, lam, out):
     kernel.call("cista_ista_conv", mode, DTYPE_CODES[src.dtype], src.data_ptr(),
                 wt.data_ptr(), bias.data_ptr(),
                 aux.data_ptr() if aux is not None else None, lam.data_ptr(),
-                out.data_ptr(), b, cin, wt.shape[0], h, wd, stream_ptr(src.device))
+                out.data_ptr(), b, cin, wt.shape[0], h, wd, device=src.device)
 
 
 def _loop(kernel, w, x1, z, depth):
@@ -101,7 +100,7 @@ def _conv_mma(kernel, mode, src, packed, bias, aux, lam, out):
     kernel.call("cista_ista_conv_mma", mode, src.data_ptr(), packed.data_ptr(),
                 bias.data_ptr(), aux.data_ptr() if aux is not None else None,
                 lam.data_ptr(), out.data_ptr(), b, groups * 8, packed.shape[2], h, wd,
-                stream_ptr(src.device))
+                device=src.device)
 
 
 def _to_grouped(kernel, x):
@@ -109,7 +108,7 @@ def _to_grouped(kernel, x):
     b, c, h, wd = x.shape
     out = torch.empty((b, c // 8, h, wd, 8), dtype=x.dtype, device=x.device)
     kernel.call("cista_regroup", 1, x.data_ptr(), out.data_ptr(), b, c, h, wd,
-                stream_ptr(x.device))
+                device=x.device)
     return out
 
 
@@ -118,7 +117,7 @@ def _from_grouped(kernel, g):
     b, groups, h, wd, _ = g.shape
     out = torch.empty((b, groups * 8, h, wd), dtype=g.dtype, device=g.device)
     kernel.call("cista_regroup", 0, g.data_ptr(), out.data_ptr(), b, groups * 8, h, wd,
-                stream_ptr(g.device))
+                device=g.device)
     return out
 
 
@@ -154,11 +153,10 @@ def fused_ista_v2(w, x1: torch.Tensor, z: torch.Tensor, depth: int) -> torch.Ten
 
 def _fused_ista_v2_kernel(w, x1, z, depth):
     check_ista_args("fused_ista_v2", w, x1, z, depth)
-    with torch.cuda.device(x1.device):
-        if uses_mma_tile(x1.dtype, x1.shape[1]):
-            zn = _from_grouped(KERNEL_V2, _loop_mma(KERNEL_V2, w, x1, z, depth))
-        else:
-            zn = _loop(KERNEL_V2, w, x1, z, depth)
+    if uses_mma_tile(x1.dtype, x1.shape[1]):
+        zn = _from_grouped(KERNEL_V2, _loop_mma(KERNEL_V2, w, x1, z, depth))
+    else:
+        zn = _loop(KERNEL_V2, w, x1, z, depth)
     KERNEL_V2.launches += 1
     return zn
 
@@ -180,13 +178,12 @@ def _fused_ista_dg_kernel(w, gw, gb, x1, z, depth):
         raise ValueError("fused_ista_dg: Dg must have D's shapes, (C, 2C, 3, 3) and (C,)")
     check_cuda("fused_ista_dg", (x1.dtype,), gw, gb, x1)
     rec = torch.empty_like(x1)
-    with torch.cuda.device(x1.device):
-        if uses_mma_tile(x1.dtype, x1.shape[1]):
-            zg = _loop_mma(KERNEL, w, x1, z, depth)
-            _conv_mma(KERNEL, MODE_G, zg, packed_weights(gw, x1.dtype), gb, None, w[4], rec)
-            zn = _from_grouped(KERNEL, zg)
-        else:
-            zn = _loop(KERNEL, w, x1, z, depth)
-            _conv(KERNEL, MODE_G, zn, gw, gb, None, w[4], rec)
+    if uses_mma_tile(x1.dtype, x1.shape[1]):
+        zg = _loop_mma(KERNEL, w, x1, z, depth)
+        _conv_mma(KERNEL, MODE_G, zg, packed_weights(gw, x1.dtype), gb, None, w[4], rec)
+        zn = _from_grouped(KERNEL, zg)
+    else:
+        zn = _loop(KERNEL, w, x1, z, depth)
+        _conv(KERNEL, MODE_G, zn, gw, gb, None, w[4], rec)
     KERNEL.launches += 1
     return zn, rec

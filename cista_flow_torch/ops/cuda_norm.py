@@ -13,7 +13,7 @@ import torch
 
 from .autograd import apply_kernel, at_least_f32, refuse_grad
 from .cuda_build import (DTYPE_CODES, F, I, Kernel, LL, P, SharedKernel, check_cuda,
-                         on_cpu, stream_ptr)
+                         on_cpu)
 
 KERNEL = Kernel("norm.cu", {"cista_instance_norm": [I, P, P, P, P, LL, I, F, I, I, I, P]})
 KERNEL_STATS = SharedKernel(KERNEL)     # K4s: the same source, its own count
@@ -93,13 +93,11 @@ def _normalise_by_stats(x, eps, relu):
 def _launch(kernel, x, y, mean, inv, eps, relu):
     b, c, h, w = x.shape
     nv, threads, _ = launch_rule(h * w, x.element_size(), x.data_ptr() % 16 == 0)
-    with torch.cuda.device(x.device):
-        kernel.launch("cista_instance_norm", DTYPE_CODES[x.dtype], x.data_ptr(),
-                      y.data_ptr() if y is not None else None,
-                      mean.data_ptr() if mean is not None else None,
-                      inv.data_ptr() if inv is not None else None,
-                      b * c, h * w, float(eps), int(relu), nv, threads,
-                      stream_ptr(x.device))
+    kernel.launch("cista_instance_norm", DTYPE_CODES[x.dtype], x.data_ptr(),
+                  y.data_ptr() if y is not None else None,
+                  mean.data_ptr() if mean is not None else None,
+                  inv.data_ptr() if inv is not None else None,
+                  b * c, h * w, float(eps), int(relu), nv, threads, device=x.device)
 
 
 def _check(x):

@@ -1,4 +1,5 @@
-"""Training on one card: the BPTT train step and its optimizer."""
+"""Training on one card or data-parallel over cards: the BPTT train step,
+its optimizer, and the mesh (``mesh.py``)."""
 from .train_step import make_optimizer, make_train_step, set_lr, step_lr
 
 __all__ = ["make_optimizer", "make_train_step", "set_lr", "step_lr"]

@@ -1,4 +1,4 @@
-"""The BPTT train step and its optimizer (one card).
+"""The BPTT train step and its optimizer, on one card or data-parallel.
 
 Counterpart of cista_flow_tpu/parallel/train_step.py (ref: train.py:180-232):
 * per sequence the state is reset and the first previous frame is zeros;
@@ -20,6 +20,13 @@ Counterpart of cista_flow_tpu/parallel/train_step.py (ref: train.py:180-232):
   ``remat`` recomputes each step in the backward; ``lpips_params`` adds
   LPIPS to the reconstruction loss.
 
+* with a ``mesh`` (``parallel/mesh.py``) each rank steps on its slice of
+  the global batch: BatchNorm takes the global batch's statistics
+  (``ops.conv.global_bn_stats``), the trained leaves' f32 gradients and
+  the loss are averaged over the ranks in one bucket, and every rank takes
+  the same Adam step, as the JAX package's step does over a mesh with the
+  batch sharded on 'data'.
+
 On the card every kernel of the step runs in forward (K1-K5), and each
 kernel's gradient is autograd of its plain version (``ops/autograd.py``).
 """
@@ -33,7 +40,8 @@ from torch.utils.checkpoint import checkpoint
 from ..device import DTYPES, cudnn_fp32
 from ..losses.recon import flow_recon_loss
 from ..models import composite
-from ..ops.conv import frozen_bn_stats
+from ..ops.conv import frozen_bn_stats, global_bn_stats
+from . import mesh as data_mesh
 
 SUBNETS = {"rec": "cista_net", "flow": "event_flownet"}   # fix_net_name -> module
 
@@ -67,14 +75,19 @@ def freeze(model: torch.nn.Module, fix_net_name: str | None) -> None:
             p.requires_grad_(False)
 
 
-def optimizer_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> None:
-    """One optimizer step as the JAX package takes it: every parameter of
-    the trained subnet advances its moments and step count, a parameter
-    outside the loss with a zero gradient; the frozen subnet (no
+def fill_grads(model: torch.nn.Module) -> None:
+    """A zero gradient for every trained parameter outside the loss: every
+    parameter of the trained subnet then advances its moments and step
+    count, as the JAX package's optimizer does; the frozen subnet (no
     ``requires_grad``, no gradient) is skipped."""
     for p in model.parameters():
         if p.requires_grad and p.grad is None:
             p.grad = torch.zeros_like(p)
+
+
+def optimizer_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> None:
+    """One optimizer step as the JAX package takes it (``fill_grads``)."""
+    fill_grads(model)
     optimizer.step()
 
 
@@ -167,7 +180,7 @@ def unroll_loss(model, seq: dict, cfg, loss_mode: str, fix_net_name, use_gt_flow
 
 def make_train_step(cfg, optimizer: torch.optim.Optimizer, loss_mode: str,
                     fix_net_name: str | None, use_gt_flow: bool, lpips_params=None,
-                    remat: bool = False):
+                    remat: bool = False, mesh=None):
     """The train step of one phase: ``step(model, seq) -> loss`` (a 0-dim f32
     tensor on the model's device). ``seq``: dict of (T, B, C, H, W) f32
     tensors on that device, event_voxel, gt_img0, gt_img1, gt_flow
@@ -175,7 +188,14 @@ def make_train_step(cfg, optimizer: torch.optim.Optimizer, loss_mode: str,
     (cista-eiflow, bidirectional)]. The model is put in train mode, its
     frozen subnet's parameters stop requiring gradients, and the optimizer
     takes one step. ``lpips_params`` adds the perceptual term; ``remat``
-    recomputes each unroll step in the backward (``unroll_loss``)."""
+    recomputes each unroll step in the backward (``unroll_loss``).
+
+    ``mesh``: a ``DataMesh``; ``seq`` is then this rank's slice of the
+    global batch (every rank's of one size), BatchNorm normalises with the
+    global batch's statistics (in the forward and in remat's recompute),
+    the trained leaves' gradients (the f32 masters', after the zero fill)
+    are averaged over the ranks with the loss in one all-reduce, and the
+    returned loss is the global batch's, still on the device."""
     dtype = DTYPES[cfg.dtype]
 
     def step(model: torch.nn.Module, seq: dict) -> torch.Tensor:
@@ -185,12 +205,19 @@ def make_train_step(cfg, optimizer: torch.optim.Optimizer, loss_mode: str,
         device = next(model.parameters()).device
         precision = (cudnn_fp32() if dtype == torch.float32 and device.type == "cuda"
                      else contextlib.nullcontext())
-        with precision:
+        stats = (global_bn_stats(data_mesh.all_reduce_sum) if mesh is not None
+                 else contextlib.nullcontext())
+        with precision, stats:
             with parameters_as(model, dtype):            # one cast per optimizer step
                 loss = unroll_loss(model, seq, cfg, loss_mode, fix_net_name, use_gt_flow,
                                    dtype, lpips_params, remat)
                 loss.backward()
-        optimizer_step(model, optimizer)
-        return loss.detach()
+        loss = loss.detach()
+        fill_grads(model)
+        if mesh is not None:
+            data_mesh.all_reduce_mean_([p.grad for p in model.parameters()
+                                        if p.grad is not None] + [loss])
+        optimizer.step()
+        return loss
 
     return step

@@ -1,10 +1,12 @@
-"""The CISTA-Flow trainer on one card: three-phase schedule, BPTT over
-sequences, every model mode.
+"""The CISTA-Flow trainer on one card or data-parallel over cards:
+three-phase schedule, BPTT over sequences, every model mode.
 
     python -m cista_flow_torch.train --model_mode cista-eiflow \
         --path_to_train_data DIR [--path_to_e2vflow CKPT] [--epochs N] ...
         [--remat] [--save_every_steps N] [--orbax_ckpt]
         [--load_epoch_for_train E | -1] [--device cpu] [--dtype bfloat16]
+        [--distributed | --mesh_shape N [--mesh_axes data]]
+    torchrun --nproc_per_node N -m cista_flow_torch.train ...
 
 Counterpart of the JAX package's ``train.py`` (ref: train.py:27-269):
 * phase schedule (ref: train.py:116-129): for cista-eiflow, cista-eraft
@@ -29,13 +31,23 @@ Counterpart of the JAX package's ``train.py`` (ref: train.py:27-269):
   restarts from its first batch;
 * ``--remat`` recomputes each unroll step in the backward;
 * LPIPS joins the reconstruction loss when ``CISTA_LPIPS`` (or
-  ``CISTA_LPIPS_ALEX``, ``CISTA_LPIPS_VGG``) names a weights file.
-Not ported: the data-parallel mesh (a multi-card feature) and the
+  ``CISTA_LPIPS_ALEX``, ``CISTA_LPIPS_VGG``) names a weights file;
+* the data axis of the JAX trainer's mesh (train.py:133-161, 204-208):
+  ``--distributed`` trains over every local card, ``--mesh_shape N`` over
+  N ranks (``--device cpu``: N gloo processes), ``torchrun`` over the
+  ranks it starts; one process per card (``parallel/mesh.py``), each on
+  its slice of every host batch (``--batch_size`` is the batch of one
+  host, split over its cards), with BatchNorm's statistics, the gradients
+  and the loss those of the global batch; rank 0 alone writes the
+  checkpoints and the log; batches reach the card through
+  ``data/prefetch.py`` (two in flight).
+Not ported: the spatial mesh axis (ROADMAP.md, Queue 1, item 9) and the
 TensorBoard writer.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import os
 import sys
 import time
@@ -45,11 +57,13 @@ import torch
 
 from . import ckpt, weights
 from .config import Config
+from .data.prefetch import device_prefetch
 from .data.train_loader import StackedSequenceLoader, TrainSequenceDataset
 from .device import resolve_device
 from .losses import lpips
 from .models import composite
-from .parallel import make_optimizer, make_train_step, set_lr, step_lr
+from .ops import cuda_build
+from .parallel import make_optimizer, make_train_step, mesh as data_mesh, set_lr, step_lr
 
 FLOW_MODES = ("cista-eiflow", "cista-eraft", "cista-idnet")
 
@@ -89,19 +103,31 @@ def is_save_epoch(cfgs, epoch: int) -> bool:
             or (epoch + 1) % 10 == 0)
 
 
+def _quiet(*args, **kwargs) -> None:
+    pass
+
+
 class Trainer:
     """Initialises the composite (from the newest full-state save with
     ``load_epoch_for_train -1``, from a saved epoch, from
     ``path_to_e2vflow``, from ``path_to_e2v`` + ``path_to_flownet``, or at
-    random from ``seed``), the data and the optimizer; ``run`` trains."""
+    random from ``seed``), the data and the optimizer; ``run`` trains.
+    With a ``mesh`` (one ``DataMesh`` rank) the model is broadcast from
+    rank 0, the loader yields this rank's slice of each host batch, the
+    step is the data-parallel one, and rank 0 alone writes and logs, the
+    others waiting at a barrier after each save."""
 
-    def __init__(self, cfgs: Config, device=None):
+    def __init__(self, cfgs: Config, device=None, mesh: data_mesh.DataMesh | None = None):
         phase_for_epoch(cfgs, 0)              # refuses an unknown mode
         self.cfgs = cfgs
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.writes = mesh is None or mesh.is_main
+        self.log = print if self.writes else _quiet
         self.model_name = model_name_from_cfg(cfgs)
         self.path_to_model = os.path.join(cfgs.path_to_model, self.model_name)
-        os.makedirs(self.path_to_model, exist_ok=True)
+        if self.writes:
+            os.makedirs(self.path_to_model, exist_ok=True)
         self.epoch_dir = os.path.join(self.path_to_model, "full_state")
         self.steps_dir = os.path.join(self.path_to_model, "full_state_steps")
 
@@ -116,43 +142,48 @@ class Trainer:
                 f"{self.model_name}_{cfgs.load_epoch_for_train}.pth.tar")))
         elif cfgs.path_to_e2vflow:
             model.load_reference_state(weights.load_state_dict(cfgs.path_to_e2vflow))
-            print(f"Load path_to_e2vflow: {cfgs.path_to_e2vflow}")
+            self.log(f"Load path_to_e2vflow: {cfgs.path_to_e2vflow}")
         else:
             if cfgs.path_to_e2v:
                 sd = weights.tie_ista_blocks(weights.load_state_dict(cfgs.path_to_e2v),
                                              cfgs.depth)
                 model.cista_net.load_state_dict(
                     {k: torch.tensor(v) for k, v in sd.items()}, strict=True)
-                print(f"Load path_to_e2v: {cfgs.path_to_e2v}")
+                self.log(f"Load path_to_e2v: {cfgs.path_to_e2v}")
             if cfgs.path_to_flownet and cfgs.model_mode in FLOW_MODES:
                 # the flow net's own checkpoint, in the reference's key layout
                 # (fnet.*, cnet.*, update_block.*; IDNet fnet.*, update_net.*)
                 sd = weights.load_state_dict(cfgs.path_to_flownet)
                 model.event_flownet.load_state_dict(
                     {k: torch.tensor(v) for k, v in sd.items()}, strict=True)
-                print(f"Load path_to_flownet: {cfgs.path_to_flownet}")
+                self.log(f"Load path_to_flownet: {cfgs.path_to_flownet}")
         if self.resume is not None:
             ckpt.restore_checkpoint(*self.resume, model=model)
         self.model = model.to(self.device)
+        if mesh is not None:
+            data_mesh.replicate_(self.model)
 
         ds = TrainSequenceDataset(
             os.path.join(cfgs.path_to_train_data, "train_e2v_estflow.txt"), cfgs)
+        shard = {} if mesh is None else dict(
+            process_index=mesh.host, process_count=mesh.n_hosts,
+            local_index=mesh.local_rank, local_count=mesh.local_world)
         self.loader = StackedSequenceLoader(ds, batch_size=cfgs.batch_size,
                                             len_sequence=max(cfgs.len_sequence, 1),
-                                            shuffle=cfgs.shuffle, seed=cfgs.seed)
+                                            shuffle=cfgs.shuffle, seed=cfgs.seed, **shard)
         self.base_lr = cfgs.lr
         lr = cfgs.lr * (0.9 ** np.floor(cfgs.load_epoch_for_train / 10.0))
         self.optimizer = make_optimizer(self.model, float(lr))
         if self.resume is not None:
             ckpt.restore_checkpoint(*self.resume, optimizer=self.optimizer)
-            print(f"Resumed exactly from {os.path.basename(self.resume[0])} "
-                  f"step {self.resume[1]}")
+            self.log(f"Resumed exactly from {os.path.basename(self.resume[0])} "
+                     f"step {self.resume[1]}")
 
         # the reference's default LPIPS net is 'alex' (loss.py:307)
         self.lpips_params = lpips.params_from_env()
         if self.lpips_params is None:
-            print("LPIPS weights not provided (set CISTA_LPIPS=<converted .npz>; see "
-                  "convert_lpips.py); training without the perceptual term.")
+            self.log("LPIPS weights not provided (set CISTA_LPIPS=<converted .npz>; see "
+                     "convert_lpips.py); training without the perceptual term.")
         else:
             self.lpips_params = lpips.to(self.lpips_params, self.device)
         self._steps = {}
@@ -184,11 +215,16 @@ class Trainer:
             self._steps[key] = make_train_step(self.cfgs, self.optimizer, loss_mode,
                                                fix_net_name, use_gt_flow,
                                                lpips_params=self.lpips_params,
-                                               remat=self.cfgs.remat)
+                                               remat=self.cfgs.remat, mesh=self.mesh)
         return self._steps[key]
 
-    def to_device(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(v).to(self.device, torch.float32) for k, v in batch.items()}
+    def save(self, write) -> None:
+        """``write()`` on the writing rank; with a mesh every rank then
+        waits until it is done."""
+        if self.writes:
+            write()
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def run(self):
         cfgs = self.cfgs
@@ -197,33 +233,42 @@ class Trainer:
             fix, loss_mode, use_gt_flow, lr_override = phase_for_epoch(cfgs, epoch)
             lr = lr_override if lr_override is not None else step_lr(self.base_lr, epoch)
             set_lr(self.optimizer, lr)
-            print(f"lr: {lr}")
-            print(f"train_rec: {fix == 'flow'}")
+            self.log(f"lr: {lr}")
+            self.log(f"train_rec: {fix == 'flow'}")
             step = self.step_fn(fix, loss_mode, use_gt_flow)
             n = len(self.loader)
             t0 = time.perf_counter()
-            for batch_idx, seq in enumerate(self.loader):
-                loss = step(self.model, self.to_device(seq))
+            for batch_idx, seq in enumerate(device_prefetch(self.loader, size=2,
+                                                            device=self.device)):
+                loss = step(self.model, seq)
                 global_step += 1
                 if cfgs.save_every_steps > 0 and global_step % cfgs.save_every_steps == 0:
                     # a mid-epoch save: a resume restarts this epoch from it
-                    ckpt.save_checkpoint(self.steps_dir, global_step, self.model,
-                                         self.optimizer, max_to_keep=2,
-                                         meta={"epoch": epoch, "global_step": global_step})
-                if batch_idx % 50 == 0:
+                    self.save(lambda: ckpt.save_checkpoint(
+                        self.steps_dir, global_step, self.model, self.optimizer,
+                        max_to_keep=2, meta={"epoch": epoch, "global_step": global_step}))
+                if batch_idx % 50 == 0 and self.writes:
                     print(f"Train Epoch: {epoch + 1} [{batch_idx * cfgs.batch_size}/"
                           f"{n * cfgs.batch_size} ({100.0 * batch_idx / max(n, 1):.0f}%)]"
                           f"\tloss: {float(loss):.6f}")
             if is_save_epoch(cfgs, epoch):
-                path = os.path.join(self.path_to_model,
-                                    f"{self.model_name}_{epoch + 1}.pth.tar")
-                weights.save_checkpoint(path, self.model, epoch)
-                print(f"saved {path}")
-                if cfgs.orbax_ckpt:
-                    ckpt.save_checkpoint(self.epoch_dir, epoch + 1, self.model,
-                                         self.optimizer)
-            print(f"epoch{epoch + 1}: {n} batches in {time.perf_counter() - t0:.2f} s "
-                  "(host clock)")
+                self.save(lambda: self.save_epoch(epoch))
+            self.log(f"epoch{epoch + 1}: {n} batches in {time.perf_counter() - t0:.2f} s "
+                     "(host clock)")
+
+    def save_epoch(self, epoch: int) -> None:
+        """The reference-layout checkpoint of ``epoch`` (and with
+        ``orbax_ckpt`` the full state)."""
+        path = os.path.join(self.path_to_model, f"{self.model_name}_{epoch + 1}.pth.tar")
+        weights.save_checkpoint(path, self.model, epoch)
+        print(f"saved {path}")
+        if self.cfgs.orbax_ckpt:
+            ckpt.save_checkpoint(self.epoch_dir, epoch + 1, self.model, self.optimizer)
+
+
+SPATIAL_AXIS = ("the spatial mesh axis (the runner's --mesh_axes spatial and "
+                "make_train_step(spatial_axis=)) is not ported: ROADMAP.md, Queue 1, "
+                "item 9")
 
 
 def parse_args(argv=None) -> tuple[Config, str]:
@@ -244,7 +289,8 @@ def parse_args(argv=None) -> tuple[Config, str]:
     ap.add_argument("--flow_epoch", default=20, type=int)
     ap.add_argument("--rec_epoch", default=5, type=int)
     ap.add_argument("--lr", default=1e-4, type=float)
-    ap.add_argument("--batch_size", default=1, type=int)
+    ap.add_argument("--batch_size", default=1, type=int,
+                    help="the batch of one host, split over its cards")
     ap.add_argument("--load_epoch_for_train", default=0, type=int)
     ap.add_argument("--is_forward_flow", action="store_true")
     ap.add_argument("--warp_mode", default="forward")
@@ -261,18 +307,72 @@ def parse_args(argv=None) -> tuple[Config, str]:
                     help="also write the full state (parameters, BatchNorm buffers, "
                          "Adam) at every epoch save, as torch.save files under "
                          "{name}/full_state, for --load_epoch_for_train -1")
+    ap.add_argument("--distributed", action="store_true",
+                    help="data-parallel over every local card, one process each")
+    ap.add_argument("--mesh_shape", default="1",
+                    help="N > 1: data-parallel over N ranks (with --device cpu, N processes)")
+    ap.add_argument("--mesh_axes", default="data", help="the mesh's one axis: data")
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = vars(ap.parse_args(argv))
     device = args.pop("device")
     args["image_dim"] = tuple(args["image_dim"])
+    if args["mesh_axes"] != "data":
+        ap.error(f"--mesh_axes {args['mesh_axes']}: the trainer's mesh has one axis, "
+                 f"'data'; {SPATIAL_AXIS}")
+    if not args["mesh_shape"].isdigit() or int(args["mesh_shape"]) < 1:
+        ap.error(f"--mesh_shape {args['mesh_shape']}: one positive rank count (the data "
+                 f"axis); {SPATIAL_AXIS}")
+    if args["distributed"] and args["mesh_shape"] == "1" and device == "cpu" \
+            and not data_mesh.under_torchrun():
+        ap.error("--distributed --device cpu: 'every local card' means nothing on the CPU; "
+                 "give the rank count with --mesh_shape N")
     # the reference trainer always shuffles, as the JAX package's train.py does
     return Config(**args, shuffle=True), device
 
 
+def mesh_world(cfgs: Config) -> int | None:
+    """The data-parallel ranks the flags ask for (train.py:134-139 of the JAX
+    package): ``--mesh_shape N`` N, else ``--distributed`` every local card;
+    under ``torchrun`` the ranks it started, flags or not. None: one process
+    and no mesh."""
+    n = int(cfgs.mesh_shape)
+    if data_mesh.under_torchrun():
+        world = int(os.environ["WORLD_SIZE"])
+        if n not in (1, world):
+            raise SystemExit(f"--mesh_shape {n} but torchrun started {world} ranks")
+        return world
+    if n > 1:
+        return n
+    return torch.cuda.device_count() if cfgs.distributed else None
+
+
+def train_rank(mesh: data_mesh.DataMesh, cfgs: Config) -> None:
+    """One rank of a data-parallel run: the kernels built once per host (by
+    its rank 0, the others waiting), then the ``Trainer`` on this rank's
+    card."""
+    if mesh.device.type == "cuda":
+        if mesh.local_rank == 0:
+            cuda_build.build_all(cuda_build.kernel_counters().values())
+        mesh.barrier()
+    Trainer(cfgs, mesh=mesh).run()
+
+
 def main(argv=None) -> int:
     cfgs, device = parse_args(argv)
-    Trainer(cfgs, device).run()
+    world = mesh_world(cfgs)
+    if world is None:
+        Trainer(cfgs, device).run()
+        return 0
+    if device != "cpu" and not data_mesh.under_torchrun():
+        resolve_device(device)
+        if world > torch.cuda.device_count():
+            raise SystemExit(f"{world} ranks but {torch.cuda.device_count()} cards: NCCL "
+                             "needs a card per rank")
+    # by its package name: run as ``python -m``, this module is __main__, which
+    # the spawned ranks import under another name
+    rank_fn = importlib.import_module("cista_flow_torch.train").train_rank
+    data_mesh.launch(rank_fn, world, device, cfgs)
     return 0
 
 
