@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (cista_flow_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--kernels-only | --train-only | --pretrain-only | --dp-only]
+    python3 chip_smoke.py [--kernels-only | --train-only | --pretrain-only | --dp-only |
+                           --spatial-only | --spatial-cards]
 
 Phases (any failure raises and the exit code is non-zero):
  1. the card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -133,19 +134,39 @@ Phases (any failure raises and the exit code is non-zero):
     current device is cuda:0 (the launches' device guard), then (a)'s
     checks with two ranks on two cards over NCCL; on one card a line says
     so.
+13. row-sharded serving (``spatial``, ``--mesh_shape 2 --mesh_axes
+    spatial``): with the kernel checks of phase 3, K2 with an output row
+    offset (``K2b``) at the bands of 2 ranks at 180x240 and 480x640 against
+    its plain version, timed at the code's band, and K3 on a band widened
+    by its halo beside the bare band; (a) two ranks sharing the card over
+    gloo (a correctness check, not a speed figure), batch 1, 16 steps, at
+    180x240 and 480x640: cista-eiflow (6,5) and cista-eraft (12,5) from the
+    sim40 anchors (eraft's window, and 16 x ``step`` at 180x240) and
+    cista-gtflow (depth 5, GT flows), f32 against one process on the card
+    within 1e-3, bf16 above 30 dB per step against it, each rank's
+    launches of K1, K2, K3, K4s and K5
+    (``rank_launches``), the bytes each rank sends per step; (b)
+    ``python -m cista_flow_torch.test_noeval --mesh_shape 2 --mesh_axes
+    spatial`` as a command, the same files as one process; (c) with two
+    cards or more, (a)'s bf16 windows on two NCCL ranks, a card each:
+    device ms per step and the exchanges' share beside one card's.
     ``--train-only`` runs the build, the kernel checks and phases 9 to 12;
-    ``--dp-only`` the build and phase 12;
+    ``--dp-only`` the build and phase 12; ``--spatial-only`` the build,
+    phase 13's kernel checks and phase 13, ``--spatial-cards`` the build
+    and its (c);
     ``--pretrain-only`` the build, (c) and phase 11. ``--grad-sources``
     (not part of the smoke) builds and then compares the card's f32
     pretraining gradients and the CPU's with an f64 evaluation under
     settings that each take one suspect out (``grad_sources``).
 Each phase prints its time. The last lines are the ``kernels`` JSON (K1,
 K2, K4 and K4s with a row for each timed shape under ``shapes``, K1, K2,
-K4 and K5 also at the pretraining shapes), the
+K4 and K5 also at the pretraining shapes; ``K2b``, K2 on the row bands of
+phase 13, its launches the ranks'), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -227,7 +248,7 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     modes = ("--kernels-only", "--train-only", "--pretrain-only", "--grad-sources",
-             "--dp-only")
+             "--dp-only", "--spatial-only", "--spatial-cards")
     if argv not in ([], *([m] for m in modes)):
         print(f"usage: chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -258,26 +279,34 @@ def main(argv) -> int:
     # ---- 3. kernels against their plain versions --------------------------
     # (the f32 plain versions are cuDNN convs: held in full f32 for the phase)
     checks = {}
-    if argv not in (["--pretrain-only"], ["--dp-only"]):
+    alone = (["--dp-only"], ["--spatial-only"], ["--spatial-cards"])
+    if argv not in (["--pretrain-only"], *alone):
         with cudnn_fp32():
             checks = kernel_checks(torch)
     # phase 11 (c): the kernels at the pretraining shapes, K3a and K4s with gradients
-    if argv != ["--dp-only"]:
+    if argv not in alone:
         for key, rows in kernels_at_pretrain_shapes(torch).items():
             checks.setdefault(key, {}).setdefault("shapes", []).extend(rows)
+    # phase 13's kernels: K2 on row bands (K2b), K3 on a widened band (timed
+    # here: after phase 12 the profiler's traces lose kernel records)
+    if argv in ([], ["--kernels-only"], ["--spatial-only"]):
+        banded_k2(torch)
+        widened_k3(torch)
     torch.cuda.synchronize()
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     if argv == ["--kernels-only"]:
         return 0
 
-    # ---- 4.-12. the main paths, at the process's own TF32 flags ----------
-    launches = {k: 0 for k in counters}
+    # ---- 4.-13. the main paths, at the process's own TF32 flags ----------
+    # (K2b: K2's launches on the row bands of phase 13)
+    launches = {k: 0 for k in (*counters, "K2b")}
     phases = (flagship_path, eraft_path, variant_windows, f32_at_default_flags,
               gate_replay, serving_clis, idnet_path, long_chunks, training_path, train_modes,
-              flow_pretraining, data_parallel)
+              flow_pretraining, data_parallel, spatial)
     if argv:
-        phases = {"--train-only": phases[-4:], "--pretrain-only": (flow_pretraining,),
-                  "--dp-only": (data_parallel,)}[argv[0]]
+        phases = {"--train-only": phases[-5:-1], "--pretrain-only": (flow_pretraining,),
+                  "--dp-only": (data_parallel,), "--spatial-only": (spatial,),
+                  "--spatial-cards": (spatial_across_cards,)}[argv[0]]
     for phase in phases:
         t_phase = time.perf_counter()
         for key, n in phase(torch, repo, counters).items():
@@ -287,10 +316,11 @@ def main(argv) -> int:
     idle = [k for k, n in launches.items() if n == 0]
     if argv:
         path = ("K1", "K2", "K4", "K5") + (("K3",) if argv != ["--pretrain-only"] else ())
+        path += ("K4s", "K2b") if argv in (["--spatial-only"], ["--spatial-cards"]) else ()
         idle = [k for k in path if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")
-    if argv in (["--pretrain-only"], ["--dp-only"]):
+    if argv in (["--pretrain-only"], *alone):
         return 0
 
     rows = []
@@ -302,6 +332,9 @@ def main(argv) -> int:
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                      **({"shapes": c["shapes"]} if "shapes" in c else {})})
+    name, source, replaces = KERNELS["K2"]
+    rows.append({"name": f"K2b {name} (row band)", "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches["K2b"], **SPATIAL_K2})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3041,6 +3074,329 @@ def data_parallel(torch, repo: Path, counters: dict) -> dict:
         for key, n in part().items():
             total[key] += n
         print(f"  {tag}: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# phase 13: row-sharded serving. (mode, iters, depth, anchor, runs) at each
+# frame size; a run is (dtype, window): eraft also steps in f32, at 180x240
+# only (stepping holds the same function as the window; at 480x640 it would
+# take the phase past its two minutes)
+SPATIAL_POINTS = (("cista-eiflow", 6, 5, "gate/flagship_sim40_f16.npz",
+                   (("float32", True), ("bfloat16", True))),
+                  ("cista-eraft", 12, 5, "gate/eraft_sim40_f16.npz",
+                   (("float32", True), ("bfloat16", True), ("float32", False))),
+                  ("cista-gtflow", None, 5, "gate/flagship_sim40_f16.npz",
+                   (("float32", True), ("bfloat16", True))))
+SPATIAL_SIZES = ((H, W), SAMSUNG)
+SPATIAL_K2 = {}          # the banded K2's row of the kernels line, once phase 13 ran
+
+
+def rank_launches(mode: str, iters, steps: int, window: bool) -> dict:
+    """One rank's launches for ``steps`` steps of its band: one process's
+    (``window_launches``; cista-eraft stepping encodes both voxels every
+    step), but each instance norm is K4s's statistics, combined over the
+    ranks, where one process runs K4."""
+    if mode == "cista-eraft" and not window:
+        want = {"K1": iters * steps, "K2": 2 * steps, "K3": steps, "K4": NORMS * steps,
+                "K5": (2 * SQUARE_CONVS + 1) * steps}
+    else:
+        want = window_launches(mode, iters, steps)
+    want = dict(want)
+    if "K4" in want:
+        want["K4s"] = want.pop("K4")
+    return want
+
+
+def spatial_inputs(torch, repo: Path, hw) -> tuple:
+    """(voxels, GT flows) of a 16-step stream at ``hw`` as .npy files the
+    ranks load, and the arrays."""
+    root = repo / "build" / "spatial"
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(13)
+    shape = (STEPS, 5, *hw)
+    vox = (rng.standard_normal(shape) * 2.0 * (rng.random(shape) < 0.05)).astype(np.float32)
+    gts = (rng.standard_normal((STEPS, 2, *hw)) * 1.5).astype(np.float32)
+    paths = (root / f"vox_{hw[0]}.npy", root / f"gt_{hw[0]}.npy")
+    np.save(paths[0], vox)
+    np.save(paths[1], gts)
+    return (str(paths[0]), str(paths[1])), (vox, gts)
+
+
+def banded_k2(torch) -> None:
+    """Phase 13: K2 with an output row offset, at the bands of 2 ranks at
+    180x240 and 480x640 (the code at half resolution, C = 128, and the
+    frame, C = 1), against ``warp_reflect_plain`` of the same band on the
+    card, with the gate true (the warp) and false (the band's rows of the
+    source, bit for bit); timed at rank 1's code band of 180x240 in bf16
+    beside the plain version and ``F.grid_sample`` on the band's grid.
+    The bound counts the source rows this flow reaches."""
+    from cista_flow_torch.ops import cuda_aug
+    from cista_flow_torch.ops.warp import frame_warp_coords
+    from cista_flow_torch.parallel import spatial
+    from cista_flow_torch.profile_kernels import grid_sample_call
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    errs = []
+    for hh, ww in SPATIAL_SIZES:
+        part = spatial.partition((hh, ww), 2, 5)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            for c, scale in ((128, 2), (1, 1)):
+                img = torch.randn(1, c, hh // scale, ww // scale, generator=g, device=dev).to(dt)
+                for r in range(2):
+                    lo, hi, _ = part.rows(r, scale)
+                    flow = torch.randn(1, 2, hi - lo, ww // scale, generator=g, device=dev) * 3.0
+                    ref = cuda_aug.warp_reflect_plain(img.float(), flow, -1.0, None, lo)
+                    out = cuda_aug.warp_reflect(img, flow, -1.0, torch.tensor(True, device=dev),
+                                                lo)
+                    errs.append(compare(torch, f"K2 band rows {lo}..{hi} of {img.shape[2]}, "
+                                        f"C={c}", dtype, out, ref,
+                                        warp_tol(img, ref, max(hh, ww), dtype)))
+                    kept = cuda_aug.warp_reflect(img, flow, -1.0,
+                                                 torch.tensor(False, device=dev), lo)
+                    if not torch.equal(kept, img[:, :, lo:hi]):
+                        raise AssertionError(f"K2 band {lo}..{hi}, gate false: not the source's "
+                                             "rows bit for bit")
+    # timed: rank 1's code band at 180x240, bf16, the serving path's gate
+    part = spatial.partition((H, W), 2, 5)
+    lo, hi, _ = part.rows(1, 2)
+    img = torch.randn(1, 128, H // 2, W // 2, generator=g, device=dev).bfloat16()
+    flow = torch.randn(1, 2, hi - lo, W // 2, generator=g, device=dev) * 3.0
+    gate = torch.tensor(True, device=dev)
+    ms = time_ms(torch, lambda: cuda_aug.warp_reflect(img, flow, -1.0, gate, lo))
+    plain = time_ms(torch, lambda: cuda_aug.warp_reflect_plain(img, flow, -1.0, gate, lo))
+    lib = time_ms(torch, grid_sample_call(img, flow, -1.0, lo))
+    _, gy = frame_warp_coords(flow, -1.0, lo, H // 2)
+    reach = (min(max(int(gy.min().floor()), 0), H // 2 - 1),
+             min(int(gy.max().ceil()) + 1, H // 2 - 1))
+    rows_read = reach[1] - reach[0] + 1
+    nbytes = (rows_read + (hi - lo)) * 128 * (W // 2) * 2 + flow.numel() * 4
+    bms, by = bound(nbytes, (hi - lo) * (W // 2) * (40 + 8 * 128), "float32")
+    print(f"  K2 band (1, 128, rows {lo}..{hi} of {H // 2}, {W // 2}) bf16: {ms:.4f} ms "
+          f"(plain {plain:.4f}, grid_sample {lib:.4f}, bound {bms:.4f} by {by}: source rows "
+          f"{reach[0]}..{reach[1]} reached) on {nvidia_smi()}")
+    SPATIAL_K2.update(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                      library_ms=lib)
+
+
+def widened_k3(torch) -> None:
+    """Phase 13: what the ISTA loop's one halo costs. K3 (bf16, depth 5, C
+    = 64) on rank 0's half-resolution band of 2 ranks widened by the 11
+    halo rows it computes, against the same band bare (the rows an
+    exchange per conv would compute), at 180x240 and 480x640."""
+    from cista_flow_torch.ops import cuda_ista2
+    from cista_flow_torch.parallel import spatial
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(32)
+    c, depth = 64, 5
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).bfloat16()
+    wts = (randn(c, 2 * c, 3, 3, scale=(18 * c) ** -0.5), randn(c, scale=0.05),
+           randn(2 * c, c, 3, 3, scale=(9 * c) ** -0.5), randn(2 * c, scale=0.05),
+           (torch.rand(2 * c, generator=g, device=dev) * 0.01).bfloat16())
+    gw, gb = randn(c, 2 * c, 3, 3, scale=(18 * c) ** -0.5), randn(c, scale=0.05)
+    for hh, ww in SPATIAL_SIZES:
+        rows = spatial.partition((hh, ww), 2, depth).sizes(2)[0]
+        ms = {}
+        try:
+            for name, n in (("bare", rows), ("widened", rows + 2 * depth + 1)):
+                x1, z = randn(1, c, n, ww // 2), randn(1, 2 * c, n, ww // 2, scale=0.1)
+                ms[name] = time_ms(torch, lambda: cuda_ista2.fused_ista_dg(wts, gw, gb, x1, z,
+                                                                           depth))
+        except RuntimeError as e:       # device_ms found every trace short of records
+            print(f"  K3 bf16 depth {depth} on rank 0's band of {hh}x{ww}: not measured ({e})")
+            continue
+        print(f"  K3 bf16 depth {depth} on rank 0's band of {hh}x{ww} ({rows} half-resolution "
+              f"rows): {ms['bare']:.4f} ms bare, {ms['widened']:.4f} ms widened by "
+              f"{2 * depth + 1} rows ({ms['widened'] / ms['bare']:.2f}x) on {nvidia_smi()}")
+
+
+def spatial_ranks(torch, repo: Path, device: str, backend, tag: str, timed: bool,
+                  ref_device: str = "cuda:0") -> dict:
+    """Phase 13 (a) or (c): 2 ranks (``parallel.check.spatial_rank``) on
+    ``device`` over ``backend`` serve ``SPATIAL_POINTS`` at both sizes, 16
+    steps, batch 1, against one process on cuda:0 on the same inputs: f32
+    frames and flows within phase 4's 1e-3 at every step, bf16 frames above
+    30 dB against the f32 one process at every step, each rank's launches
+    ``rank_launches``, rank 0 alone returning the frame. With ``timed``
+    (NCCL, a card per rank) bf16 device ms per step and the exchanges'
+    share beside one card's. Returns the launches of the ranks and of the
+    one-process references, the ranks' K2 under 'K2b'."""
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.ops.cuda_build import kernel_counters
+    from cista_flow_torch.parallel import check
+    from cista_flow_torch.runner import Reconstructor
+
+    counters = kernel_counters()
+    total = {k: 0 for k in counters}
+    total["K2b"] = 0
+    jobs, names, inputs = [], [], {}
+    for hw in SPATIAL_SIZES:
+        paths, arrays = spatial_inputs(torch, repo, hw)
+        inputs[hw] = arrays
+        for mode, iters, depth, anchor, runs in SPATIAL_POINTS:
+            for dtype, window in runs:
+                if (timed and dtype != "bfloat16") or (not window and hw != (H, W)):
+                    continue
+                cfg = Config(image_dim=hw, model_mode=mode, depth=depth, flow_iters=iters,
+                             dtype=dtype, path_to_test_model=str(repo / anchor))
+                gt = paths[1] if mode == "cista-gtflow" else None
+                jobs.append(dict(kind="serve", cfg=cfg, voxels=paths[0], gt_flows=gt,
+                                 window=window, timed=timed))
+                names.append((hw, mode, iters, depth, dtype, window))
+    t0 = time.perf_counter()
+    ranks = check.run(check.spatial_rank, 2, device, jobs, str(repo / "build" / "spatial" / "out"),
+                      backend=backend)
+    print(f"  {tag}: two ranks ran {len(jobs)} windows of {STEPS} steps in "
+          f"{time.perf_counter() - t0:.1f} s")
+    refs, failures = {}, []
+    for (hw, mode, iters, depth, dtype, window), job, r0, r1 in zip(names, jobs, *ranks):
+        name = (f"{tag}, {mode} ({iters},{depth}) {hw[0]}x{hw[1]} {dtype} "
+                f"{'window' if window else f'{STEPS} x step'}")
+        vox, gts = inputs[hw]
+        gts = gts if mode == "cista-gtflow" else None
+        key = (hw, mode, window)
+        if key not in refs:
+            rec = Reconstructor(dataclasses.replace(job["cfg"], dtype="float32"),
+                                device=ref_device)
+            refs[key], got = counted(counters, lambda: serve_stream(rec, vox, gts, window))
+            for k in counters:
+                total[k] += got[k]
+        ref = refs[key]
+        if r1["out"] is not None or r0["out"][0].shape != (STEPS, *hw):
+            failures.append(f"{name}: rank 0 alone returns the frame")
+            continue
+        for r, res in enumerate((r0, r1)):
+            want = rank_launches(mode, iters if iters else 0, STEPS, window)
+            expect_launches(f"{name}, rank {r}", res["launches"], want)
+            for k, n in res["launches"].items():
+                total["K2b" if k == "K2" else k] += n
+        sent = {k: sum(res["sent"][k] for res in (r0, r1)) / 2 / STEPS / 1e6 for k in r0["sent"]}
+        line = (f"  {name}: MB sent per rank and step " +
+                ", ".join(f"{k} {v:.3f}" for k, v in sent.items()))
+        if dtype == "float32":
+            err = max(float(np.abs(a - b).max()) for a, b in zip(r0["out"], ref))
+            line += f"; against one process: max abs err {err:.3e} (tol 1e-3)"
+            if err > 1e-3:
+                failures.append(f"{name}: {err} from one process")
+        else:
+            psnr = psnr_per_step(r0["out"][0], ref[0])
+            line += f"; bf16 against the f32 one process: min PSNR {min(psnr):.2f} dB (> {PSNR_MIN})"
+            if min(psnr) <= PSNR_MIN:
+                failures.append(f"{name}: bf16 PSNR {min(psnr):.2f}")
+        if timed:
+            one = one_card_ms(torch, job["cfg"], vox, gts)
+            line += (f"; device ms per step rank 0 {r0['ms']:.2f}, rank 1 {r1['ms']:.2f}, "
+                     f"exchanges {100 * r0['exchange_share']:.1f}% and "
+                     f"{100 * r1['exchange_share']:.1f}% of the window's kernel time; one card "
+                     f"{one:.2f} ms on {nvidia_smi()}")
+        print(line)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return total
+
+
+def serve_stream(rec, vox, gts, window: bool) -> tuple:
+    """(frames, flows) of a stream through ``rec``: one window, or a
+    ``step`` per voxel."""
+    use_gt = gts is not None
+    if window:
+        return rec.step_window(vox, gts, use_gt_flow=use_gt, return_all=True)
+    steps = [rec.step(v, gts[t] if use_gt else None, use_gt_flow=use_gt)
+             for t, v in enumerate(vox)]
+    return tuple(np.stack(o) for o in zip(*steps))
+
+
+def one_card_ms(torch, cfg, vox, gts) -> float:
+    """Device ms per step of one process's window on cuda:0 (after one
+    warm-up window), CUDA events."""
+    from cista_flow_torch.runner import Reconstructor
+    rec = Reconstructor(cfg, device="cuda:0")
+    rec.step_window(vox, gts, use_gt_flow=gts is not None)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    rec.step_window(vox, gts, use_gt_flow=gts is not None)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / len(vox)
+
+
+def spatial_cli(torch, repo: Path) -> dict:
+    """Phase 13 (b): ``python -m cista_flow_torch.test_noeval --mesh_shape 2
+    --mesh_axes spatial --device cuda:0`` (two gloo ranks sharing the
+    card; rank 0 reads the stream and writes) as a command, against
+    ``test_noeval.main`` on one process in this one: exit 0, the same
+    files, frames within one grey level. cista-eiflow (6,5), f32, phase
+    6b's stream. Returns the one process's launches."""
+    import contextlib
+    import io as _io
+    import shutil
+
+    from cista_flow_torch import test_noeval
+    from cista_flow_torch.ops.cuda_build import kernel_counters
+    data = cli_data(repo)
+    base = data["out"] / "spatial"
+    shutil.rmtree(base, ignore_errors=True)
+    flags = ["--model_mode", "cista-eiflow", "--flow_iters", "6", "-d", "5",
+             "--path_to_test_model", str(repo / "gate" / "flagship_sim40_f16.npz"),
+             "--path_to_test_data", str(data["stream"]), "--num_events", str(CLI_EVENTS),
+             "--test_img_num", "5", "--image_dim", str(H), str(W)]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_io.StringIO()):
+        _, got = counted(kernel_counters(), lambda: test_noeval.main(
+            flags + ["-o", str(base / "one"), "--device", "cuda"]))
+    print(f"  (b) test_noeval on one process: {time.perf_counter() - t0:.1f} s")
+    extra = ["--device", "cuda:0", "--mesh_shape", "2", "--mesh_axes", "spatial"]
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "cista_flow_torch.test_noeval", *flags,
+                          "-o", str(base / "two"), *extra], cwd=repo, capture_output=True,
+                         text=True)
+    print(f"  (b) test_noeval {' '.join(extra)}: exit {run.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if run.returncode != 0:
+        print(run.stderr)               # every rank's traceback, the first one's too
+        raise AssertionError(f"test_noeval {extra} failed:\n{run.stdout[-2000:]}")
+    a, b = read_pngs(base / "one"), read_pngs(base / "two")
+    if not a or list(a) != list(b):
+        raise AssertionError(f"(b) the files differ: {list(a)} {list(b)}")
+    lv = max(int(np.abs(a[k].astype(int) - b[k].astype(int)).max()) for k in a)
+    print(f"  (b) {len(a)} frames written by both, within {lv} grey level(s) (tol 1)")
+    if lv > 1:
+        raise AssertionError(f"(b) frames {lv} grey levels apart")
+    return got
+
+
+def spatial_across_cards(torch, repo: Path, counters: dict) -> dict:
+    """Phase 13 (c), which ``--spatial-cards`` runs alone: two NCCL ranks,
+    a card each."""
+    if torch.cuda.device_count() < 2:
+        raise AssertionError("phase 13 (c) needs two cards")
+    return spatial_ranks(torch, repo, "cuda", None, "(c) 2 ranks, 2 cards, nccl", True)
+
+
+def spatial(torch, repo: Path, counters: dict) -> dict:
+    """Phase 13: row-sharded serving. See the module's docstring."""
+    total = {k: 0 for k in counters}
+    total["K2b"] = 0
+    parts = [("(a) 2 ranks on cuda:0 over gloo",
+              lambda: spatial_ranks(torch, repo, "cuda:0", "gloo", "(a) 2 ranks, cuda:0, gloo",
+                                    False)),
+             ("(b) test_noeval on 2 ranks", lambda: spatial_cli(torch, repo))]
+    if torch.cuda.device_count() >= 2:
+        parts.append(("(c) 2 ranks on 2 cards over NCCL",
+                      lambda: spatial_across_cards(torch, repo, counters)))
+    else:
+        parts.append(("(c) two ranks across cards over NCCL: not run, this machine has one card",
+                      dict))
+    for tag, part in parts:
+        t1 = time.perf_counter()
+        for key, n in part().items():
+            total[key] += n
+        print(f"  {tag}: {time.perf_counter() - t1:.1f} s")
     return total
 
 

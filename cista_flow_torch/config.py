@@ -5,8 +5,9 @@ A copy of ``cista_flow_tpu.configs.Config`` (same names, same defaults)
 without the TPU knobs; the port imports nothing of the JAX package.
 ``add_args``/``from_args`` keep the reference's flag names and short forms
 (ref: utils/configs.py:4-165) and add ``--device``. The JAX package's
-TPU-only flags (``TPU_ONLY_FLAGS``) are not accepted; the trainer's parser
-takes its mesh flags (``MESH_FLAGS``). The dataclass's own
+TPU-only flags (``TPU_ONLY_FLAGS``) are not accepted. Its mesh flags
+(``MESH_FLAGS``) are the trainer's (a data axis) and, through
+``add_mesh_args``, the serving CLIs' (a spatial axis). The dataclass's own
 ``model_mode`` default is ``cista-eiflow``; the flag's, as in the reference,
 is ``cista-lstc``.
 """
@@ -17,11 +18,12 @@ import dataclasses
 from dataclasses import dataclass
 
 # the JAX package's mesh flags: the trainer's own parser takes them (a data
-# axis over cards, ``train.py``); the serving CLIs, which run on one card,
-# refuse them with the Pallas-routing flags, which have no meaning on the
-# card (cista_flow_tpu/configs.py:242-262)
+# axis over cards, ``train.py``), the serving CLIs ``add_mesh_args`` (one
+# stream's rows over cards, ``parallel/spatial.py``). The serving CLIs
+# refuse the Pallas-routing flags, which have no meaning on the card
+# (cista_flow_tpu/configs.py:242-262)
 MESH_FLAGS = ("--mesh_shape", "--mesh_axes")
-TPU_ONLY_FLAGS = MESH_FLAGS + ("--serve_pallas", "--train_pallas", "--encoder_merge",
+TPU_ONLY_FLAGS = ("--serve_pallas", "--train_pallas", "--encoder_merge",
                                "--corr_fuse_proj", "--eraft_pair_tower")
 
 
@@ -69,8 +71,8 @@ class Config:
     is_reverse_events: bool = False
     is_bi: bool = False
     distributed: bool = False        # the trainer: data-parallel over every local card
-    mesh_shape: str = "1"            # the trainer: N data-parallel ranks
-    mesh_axes: str = "data"
+    mesh_shape: str = "1"            # N ranks: the trainer's data axis, serving's spatial one
+    mesh_axes: str = "data"          # data (the trainer) | spatial (serving)
     num_events: int = 15000
 
     # testing (ref: utils/configs.py; cista_flow_tpu/configs.py:72-86)
@@ -188,6 +190,17 @@ def add_args(parser: argparse.ArgumentParser) -> None:
     a("--save_every_steps", default=0, type=int,
       help="> 0: a full-state save every N optimizer steps")
     a("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def add_mesh_args(parser: argparse.ArgumentParser) -> None:
+    """The serving CLIs' mesh flags, with the JAX CLIs' defaults
+    (cista_flow_tpu/configs.py:224-225): ``--mesh_shape N --mesh_axes
+    spatial`` serves one stream's rows over N ranks
+    (``parallel.spatial.serving_world`` says what it refuses)."""
+    parser.add_argument("--mesh_shape", default="1", type=str,
+                        help="N > 1 with --mesh_axes spatial: one stream's rows over N ranks")
+    parser.add_argument("--mesh_axes", default="data", type=str,
+                        help="spatial: shard the rows (serving has no data axis)")
 
 
 def from_args(args: argparse.Namespace) -> Config:

@@ -32,6 +32,10 @@
 // - The fold needs fmodf only beyond two periods (see reflect_coord).
 // - A warp is 32 neighbouring pixels of one row, so the stores, the flow
 //   loads and most corner loads of a warp are coalesced within each plane.
+// - A row band of a sharded step writes its own rows [row0, row0 + rows) of
+//   the frame from the whole source: the flow and the output hold the
+//   band's rows, the grid, the normalization and the reflection are the
+//   frame's (H, W). One process passes row0 = 0, rows = H.
 // Layout: NCHW, as everywhere in the port.
 #include "common.cuh"
 
@@ -50,35 +54,39 @@ __device__ __forceinline__ float reflect_coord(float c, float span) {
     return r > span ? two - r : r;
 }
 
-// Pixel (x, y) of sample b samples img at grid + sign * flow; each thread
-// writes its pixel in channels [c0, c0 + CH) (clipped to C).
+// Pixel (x, row0 + yo) of sample b samples img at grid + sign * flow; each
+// thread writes its pixel, row yo of the output, in channels [c0, c0 + CH)
+// (clipped to C).
 template <typename T, int CH>
 __global__ void __launch_bounds__(CH == 1 ? 256 : 128)
 warp_reflect_kernel(const T* __restrict__ img, const float* __restrict__ flow,
                                     const unsigned char* __restrict__ gate,
-                                    T* __restrict__ out, int C, int H, int W,
-                                    int row_tiles, float sign) {
+                                    T* __restrict__ out, int C, int H, int W, int row0,
+                                    int rows, int row_tiles, float sign) {
     const int x = blockIdx.x * TX + threadIdx.x;
     const int chunk = blockIdx.y / row_tiles;
-    const int y = (blockIdx.y - chunk * row_tiles) * blockDim.y + threadIdx.y;
-    if (x >= W || y >= H) return;
+    const int yo = (blockIdx.y - chunk * row_tiles) * blockDim.y + threadIdx.y;
+    if (x >= W || yo >= rows) return;
     const int b = blockIdx.z;
     const int c0 = chunk * CH;
-    const long long hw = static_cast<long long>(H) * W;
+    const int y = row0 + yo;                            // the frame's row
+    const long long hw = static_cast<long long>(H) * W;     // a source plane
+    const long long ohw = static_cast<long long>(rows) * W; // an output and flow plane
     const int p = y * W + x;
+    const int q = yo * W + x;
     const T* ib = img + (static_cast<long long>(b) * C + c0) * hw;
-    T* ob = out + (static_cast<long long>(b) * C + c0) * hw;
+    T* ob = out + (static_cast<long long>(b) * C + c0) * ohw;
 
     if (gate != nullptr && *gate == 0) {    // zero flow: the input, unchanged
 #pragma unroll
         for (int k = 0; k < CH; ++k)
-            if (c0 + k < C) ob[k * hw + p] = ib[k * hw + p];
+            if (c0 + k < C) ob[k * ohw + q] = ib[k * hw + p];
         return;
     }
 
-    const float* fb = flow + static_cast<long long>(b) * 2 * hw;
-    const float gx = static_cast<float>(x) + sign * fb[p];
-    const float gy = static_cast<float>(y) + sign * fb[hw + p];
+    const float* fb = flow + static_cast<long long>(b) * 2 * ohw;
+    const float gx = static_cast<float>(x) + sign * fb[q];
+    const float gy = static_cast<float>(y) + sign * fb[ohw + q];
     // reference normalization (true divisions, as JAX), then grid_sample's
     // align_corners=True map back to pixels
     const float nx = 2.0f * (gx / static_cast<float>(W) - 0.5f);
@@ -121,30 +129,31 @@ warp_reflect_kernel(const T* __restrict__ img, const float* __restrict__ flow,
             s += to_f(v[k][1]) * w01;
             s += to_f(v[k][2]) * w10;
             s += to_f(v[k][3]) * w11;
-            ob[k * hw + p] = from_f<T>(s);
+            ob[k * ohw + q] = from_f<T>(s);
         }
     }
 }
 
 template <typename T, int CH>
 int launch(const void* img, const void* flow, const void* gate, void* out, int B, int C,
-           int H, int W, float sign, cudaStream_t st) {
+           int H, int W, int row0, int rows, float sign, cudaStream_t st) {
     // one row of 32 pixels per warp; 8 rows a block for the frame (C = 1),
     // 4 for channel chunks (their threads carry 4*CH loads each)
     const int ty = CH == 1 ? 8 : 4;
-    const int row_tiles = (H + ty - 1) / ty;
+    const int row_tiles = (rows + ty - 1) / ty;
     const long long ny = static_cast<long long>(row_tiles) * ((C + CH - 1) / CH);
     if (ny > 65535) return static_cast<int>(cudaErrorInvalidValue);
     // the samples are on grid z, at most 65535 a launch
     constexpr int kMaxZ = 65535;
     const long long plane = static_cast<long long>(H) * W;
+    const long long oplane = static_cast<long long>(rows) * W;
     for (int b0 = 0; b0 < B; b0 += kMaxZ) {
-        const long long first = static_cast<long long>(b0) * plane;   // sample b0's pixel 0
         const dim3 grid((W + TX - 1) / TX, static_cast<unsigned>(ny), min(B - b0, kMaxZ));
         warp_reflect_kernel<T, CH><<<grid, dim3(TX, ty), 0, st>>>(
-            static_cast<const T*>(img) + first * C, static_cast<const float*>(flow) + first * 2,
-            static_cast<const unsigned char*>(gate), static_cast<T*>(out) + first * C,
-            C, H, W, row_tiles, sign);
+            static_cast<const T*>(img) + b0 * plane * C,
+            static_cast<const float*>(flow) + b0 * oplane * 2,
+            static_cast<const unsigned char*>(gate), static_cast<T*>(out) + b0 * oplane * C,
+            C, H, W, row0, rows, row_tiles, sign);
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return static_cast<int>(err);
     }
@@ -153,25 +162,27 @@ int launch(const void* img, const void* flow, const void* gate, void* out, int B
 
 template <typename T>
 int dispatch(const void* img, const void* flow, const void* gate, void* out, int B, int C,
-             int H, int W, float sign, cudaStream_t st) {
-    if (C == 1) return launch<T, 1>(img, flow, gate, out, B, C, H, W, sign, st);
-    return launch<T, 8>(img, flow, gate, out, B, C, H, W, sign, st);
+             int H, int W, int row0, int rows, float sign, cudaStream_t st) {
+    if (C == 1) return launch<T, 1>(img, flow, gate, out, B, C, H, W, row0, rows, sign, st);
+    return launch<T, 8>(img, flow, gate, out, B, C, H, W, row0, rows, sign, st);
 }
 
 }  // namespace
 
-// img, out: (B, C, H, W) in dtype; flow: (B, 2, H, W) f32 pixel flow; gate:
-// null, or one device byte: 0 writes img unchanged, else the warp.
-// Samples img at (x + sign*flow_x, y + sign*flow_y).
+// img: (B, C, H, W) in dtype; flow: (B, 2, rows, W) f32 pixel flow and out:
+// (B, C, rows, W), the frame's rows [row0, row0 + rows) (one process: 0 and
+// H); gate: null, or one device byte: 0 writes img's rows unchanged, else
+// the warp. Samples img at (x + sign*flow_x, y + sign*flow_y).
 CISTA_EXPORT int cista_warp_reflect(int dtype, const void* img, const void* flow,
                                     const void* gate, void* out, int B, int C, int H,
-                                    int W, float sign, void* stream) {
-    if (B <= 0 || C <= 0 || H <= 0 || W <= 0
+                                    int W, int row0, int rows, float sign, void* stream) {
+    if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || rows <= 0 || row0 < 0 || row0 > H - rows
         || static_cast<long long>(H) * W > 2147483647LL)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == DT_F32) return dispatch<float>(img, flow, gate, out, B, C, H, W, sign, st);
+    if (dtype == DT_F32)
+        return dispatch<float>(img, flow, gate, out, B, C, H, W, row0, rows, sign, st);
     if (dtype == DT_BF16)
-        return dispatch<__nv_bfloat16>(img, flow, gate, out, B, C, H, W, sign, st);
+        return dispatch<__nv_bfloat16>(img, flow, gate, out, B, C, H, W, row0, rows, sign, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

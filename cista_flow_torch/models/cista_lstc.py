@@ -7,6 +7,11 @@ initial sparse code -> ``depth`` weight-tied ISTA iterations + the Dg conv
 ``ista_route`` selects the two other kernels that compute the loop (K3a,
 K6), each followed by the Dg conv as a plain conv + relu.
 
+On a row band of a sharded step the ISTA loop and the Dg conv, a run of
+2*depth+1 reflect-padded 3x3 convs, take one halo of that many rows of
+``x1`` and ``z`` from each neighbour and run as one call on the widened
+band (ops/bands.py's rule); every other conv exchanges its own halo.
+
 The reference registers its one ISTA block ``depth`` times, as
 ``lista_blocks.{0..depth-1}``; so does this module (one shared parameter
 set), so reference state dicts load with ``strict=True``.
@@ -18,6 +23,7 @@ from typing import NamedTuple
 import torch
 import torch.nn as nn
 
+from ..ops import bands
 from ..nn.layers import ConvLayer, ConvLSTC, IstaBlock, RecurrentConvLayer, UpsampleConvLayer
 from ..ops.conv import conv2d
 from ..ops.cuda_ista import fused_ista
@@ -66,20 +72,40 @@ class CistaLSTC(nn.Module):
         x1 = torch.cat([self.We(events), self.Wi(prev_image)], 1)
         x1 = self.W0(x1)
         z, lstc_cell = self.P0(x1, state.sparse_code, state.lstc_cell)
-
-        block = self.lista_blocks[0]
-        dg = self.Dg.conv.conv2d
-        loop = ISTA_ROUTES[self.ista_route]
-        if loop is None:
-            z, rec = fused_ista_dg(block.kernel_weights(), dg.weight, dg.bias,
-                                   x1, z, self.depth)
+        band = bands.active()
+        if band is None:
+            z, rec = self.ista(x1, z)
         else:
-            z = loop(block.kernel_weights(), x1, z, self.depth)
-            rec = conv2d(z, dg.weight, dg.bias, padding=1,
-                         padding_mode="reflect", relu=True)
+            z, rec = self.ista_rows(band, x1, z)
         hidden, cell = self.Dg.recurrent_block(rec, (state.dg_hidden, state.dg_cell))
 
         h, w = events.shape[2:]
         rec = self.upsamp_conv(hidden, out_hw=(h, w))
         rec = torch.sigmoid(self.final_conv(rec))
         return rec, CistaState(lstc_cell, z, hidden, cell)
+
+    def ista(self, x1, z):
+        """``depth`` ISTA iterations and the Dg conv + relu: (z, rec)."""
+        block = self.lista_blocks[0]
+        dg = self.Dg.conv.conv2d
+        loop = ISTA_ROUTES[self.ista_route]
+        if loop is None:
+            return fused_ista_dg(block.kernel_weights(), dg.weight, dg.bias,
+                                 x1, z, self.depth)
+        z = loop(block.kernel_weights(), x1, z, self.depth)
+        return z, conv2d(z, dg.weight, dg.bias, padding=1, padding_mode="reflect",
+                         relu=True)
+
+    def ista_rows(self, band, x1, z, halos=None):
+        """``ista`` of a row band: one exchange of 2*depth+1 rows of x1 and
+        z from each neighbour, one call on the widened band, cropped.
+        ``halos``: the (top, bottom) of ``cat([x1, z])`` (exchanged by
+        ``band`` when None)."""
+        r = 2 * self.depth + 1
+        top, bottom = band.halo(torch.cat([x1, z], 1), r, r) if halos is None else halos
+        c = x1.shape[1]
+        wide = bands.widen(torch.cat([x1, z], 1), top, bottom)
+        with bands.local():
+            zw, recw = self.ista(wide[:, :c].contiguous(), wide[:, c:].contiguous())
+        rows = x1.shape[-2]
+        return bands.crop(zw, top, rows), bands.crop(recw, top, rows)

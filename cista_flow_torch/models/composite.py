@@ -9,7 +9,11 @@ previous frame and the recurrent sparse code along it (kernel K2), then
 reconstruct with CISTA-LSTC. Every mode takes ``batch_gt={'gt_flow'}``,
 which the warps then follow. For cista-eraft there is also the
 time-parallel window, the twin of ``apply_sequence_eraft``; for
-cista-eiflow the ``flow_half`` serving reduction.
+cista-eiflow the ``flow_half`` serving reduction. On a row band of a
+sharded step (cista-eiflow, cista-eraft, cista-lstc, cista-gtflow) each
+rank warps its own rows of the frame and of the code, sampling the whole
+previous frame and the whole code, gathered from the ranks, under the
+zero-flow gate of the whole flow.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ import torch.nn as nn
 from .. import weights
 from ..config import Config
 from ..device import resolve_device
-from ..ops.pad import ImagePadder
+from ..ops import bands
+from ..ops.pad import padder_for
 from ..ops.resize import interpolate_scale
 from ..ops.warp import frame_warp
 from .cista_lstc import CistaLSTC, CistaState
@@ -56,12 +61,33 @@ class _Composite(nn.Module):
         ``half_flow``: the code's flow when the flow net already gives it
         (``flow_half``); else ``flow_final`` resized by ``scale_factor``."""
         cfg = self.cfg
+        band = bands.active()
+        if band is not None:
+            return self._warp_rows(band, rec_img0, state, flow_final)
         any_flow = torch.any(flow_final)        # nonzero, as flow != 0
         warped_i = frame_warp(rec_img0, flow_final, mode=cfg.warp_mode, gate=any_flow)
         if half_flow is None:
             half_flow = interpolate_scale(flow_final, cfg.scale_factor, align_corners=True)
         warped_z = frame_warp(state.sparse_code, half_flow, mode=cfg.warp_mode,
                               gate=any_flow)
+        return warped_i, state._replace(sparse_code=warped_z)
+
+    def _warp_rows(self, band, rec_img0, state: CistaState, flow_final):
+        """``_warp_inputs`` of a row band: the gate is the flow's over every
+        rank (a max), each warp writes the band's rows (K2's output row
+        offset) from the whole source, and the code's flow is the band's
+        rows of the frame's x0.5 resize."""
+        cfg = self.cfg
+        if cfg.scale_factor != 0.5:
+            raise ValueError("a row band's code is at half resolution: scale_factor 0.5")
+        any_flow = band.any(torch.any(flow_final))
+        frame = band.gather_rows(rec_img0, 1, padded=False)
+        warped_i = frame_warp(frame, flow_final, mode=cfg.warp_mode, gate=any_flow,
+                              row0=band.rows(1, padded=False)[0])
+        half_flow = bands.resize(flow_final, 1, 2, padded=False, align_corners=True)
+        code = band.gather_rows(state.sparse_code, 2, padded=False)
+        warped_z = frame_warp(code, half_flow, mode=cfg.warp_mode, gate=any_flow,
+                              row0=band.rows(2, padded=False)[0])
         return warped_i, state._replace(sparse_code=warped_z)
 
     def reconstruct(self, events, rec_img0, state: CistaState, flow_final, half_flow=None):
@@ -174,7 +200,7 @@ class CistaERAFT(_Composite):
         t1, b = voxel_seq.shape[:2]
         t_len = t1 - 1
         net = self.event_flownet
-        padder = ImagePadder(voxel_seq.shape[3:], min_size=32)
+        padder = padder_for(voxel_seq.shape[3:], min_size=32)
         padded = padder.pad(voxel_seq.reshape(t1 * b, *voxel_seq.shape[2:]))
         fmaps = net.fnet(padded)
         fmap1, fmap2 = fmaps[:t_len * b], fmaps[b:]

@@ -8,6 +8,9 @@ encoder -> ``iters`` GRU iterations, each with one correlation lookup
 (kernel K1, convc1 fused) -> ``upflow8``. In training the second frame is
 encoded beside the first (the pseudo-feature loss), and with reversed events
 the same weights run the backward direction too (ref: DCEIFlow.py:230-270).
+On a row band of a sharded step (serving) the band's ``fmap1`` rows
+correlate with the whole frame's pseudo ``fmap2``, its coordinates start at
+its first row, and ``upflow8`` gives the band's rows.
 """
 from __future__ import annotations
 
@@ -18,11 +21,11 @@ import torch.nn as nn
 
 from ..nn.encoders import BasicEncoder
 from ..nn.gru import BasicUpdateBlockEvent
+from ..ops import bands
 from ..ops import corr as CORR
 from ..ops import cuda_corr
 from ..ops.conv import conv2d
-from ..ops.pad import ImagePadder
-from ..ops.resize import upflow
+from ..ops.pad import padder_for
 
 HDIM = 128
 CDIM = 128
@@ -72,9 +75,9 @@ class DCEIFlow(nn.Module):
             net, delta = ub(net, inp, cor, ema, coords1 - coords0)
             coords1 = coords1 + delta
             if collect_preds:
-                preds.append(upflow(coords1 - coords0, self.ds))
+                preds.append(bands.upflow(coords1 - coords0, self.ds))
         if not collect_preds:
-            preds.append(upflow(coords1 - coords0, self.ds))
+            preds.append(bands.upflow(coords1 - coords0, self.ds))
         return coords1, torch.stack(preds)
 
     def _single_direction(self, emap, fmap1, im1, iters, flow_init, collect_preds):
@@ -82,13 +85,15 @@ class DCEIFlow(nn.Module):
         frame's features: (flow at 1/8, flow_preds, pseudo second-frame
         features)."""
         pseudo_fmap2 = self.fusion(fmap1, emap)
-        pyr = CORR.build_corr_pyramid(fmap1, pseudo_fmap2, CORR_LEVELS)
+        pyr = CORR.build_corr_pyramid(fmap1, bands.gather(pseudo_fmap2, self.ds, padded=True),
+                                      CORR_LEVELS)
         cnet = self.cnet(im1)
         net = torch.tanh(cnet[:, :HDIM])
         inp = torch.relu(cnet[:, HDIM:])
 
         b, _, h, w = im1.shape
-        coords0 = CORR.coords_grid(b, h // self.ds, w // self.ds, im1.device)
+        coords0 = CORR.coords_grid(b, h // self.ds, w // self.ds, im1.device,
+                                   bands.first_row(self.ds, padded=True))
         coords1 = coords0 if flow_init is None else coords0 + flow_init
         coords1, flow_preds = self._iterate(net, inp, pyr, coords0, coords1,
                                             emap, iters, collect_preds)
@@ -103,7 +108,7 @@ class DCEIFlow(nn.Module):
         ``reversed_event_voxel`` the backward direction's 'flow_preds_bw'
         (every iteration), 'flow_final_bw' (kept padded, as the reference
         does), 'fmap1_gt' and 'fmap1_pseudo'."""
-        padder = ImagePadder(event_voxel.shape[2:], min_size=32)
+        padder = padder_for(event_voxel.shape[2:], min_size=32)
         im1 = padder.pad(2.0 * image1 - 1.0)
         ev = padder.pad(event_voxel)
         emap = self.enet(ev)

@@ -4,7 +4,10 @@ Counterpart of cista_flow_tpu/models/eraft.py ``apply`` (ref:
 ERAFT/eraft.py:37-178): feature encoder on both voxels (one 2B call) ->
 all-pairs correlation pyramid -> context encoder on the newer voxel ->
 ``iters`` GRU iterations, each with one correlation lookup (kernel K1,
-convc1 fused) -> one convex upsampling. The JAX package's merged
+convc1 fused) -> one convex upsampling. On a row band of a sharded step
+(serving) the band's ``fmap1`` rows correlate with the whole frame's
+``fmap2``, its coordinates start at its first row, and the convex
+upsampling takes one halo row of the coarse flow. The JAX package's merged
 fnet+cnet tower regroups the same encoders for the TPU's lanes and has no
 counterpart here.
 """
@@ -15,10 +18,10 @@ import torch.nn as nn
 
 from ..nn.encoders import BasicEncoder
 from ..nn.gru import BasicUpdateBlock
+from ..ops import bands
 from ..ops import corr as CORR
 from ..ops import cuda_corr
-from ..ops.pad import ImagePadder
-from ..ops.upsample import convex_upsample
+from ..ops.pad import padder_for
 
 HDIM = 128
 CDIM = 128
@@ -48,7 +51,7 @@ class ERAFT(nn.Module):
         {'flow_preds' (n, B, 2, Hp, Wp), 'flow_init' (B, 2, Hp/8, Wp/8),
         'flow_final' (B, 2, H, W)}; flows are f32. ``collect_preds`` keeps
         every iteration's upsampled flow; serving upsamples once."""
-        padder = ImagePadder(voxel_new.shape[2:], min_size=32)
+        padder = padder_for(voxel_new.shape[2:], min_size=32)
         if encoded is None:
             encoded = self.encode(padder.pad(voxel_old), padder.pad(voxel_new))
         flow_init_out, flow_preds = self.iterate(*encoded, iters, flow_init, collect_preds)
@@ -58,12 +61,12 @@ class ERAFT(nn.Module):
     def iterate(self, fmap1, fmap2, cnet, iters, flow_init=None, collect_preds=False):
         """The pyramid, the GRU iterations and the convex upsampling from
         encoded features: (flow at 1/8, flow_preds (n, B, 2, 8h, 8w))."""
-        pyr = CORR.build_corr_pyramid(fmap1, fmap2, CORR_LEVELS)
+        pyr = CORR.build_corr_pyramid(fmap1, bands.gather(fmap2, 8, padded=True), CORR_LEVELS)
         net = torch.tanh(cnet[:, :HDIM])
         inp = torch.relu(cnet[:, HDIM:])
 
         b, _, h8, w8 = fmap1.shape
-        coords0 = CORR.coords_grid(b, h8, w8, fmap1.device)
+        coords0 = CORR.coords_grid(b, h8, w8, fmap1.device, bands.first_row(8, padded=True))
         coords1 = coords0 if flow_init is None else coords0 + flow_init
         ub = self.update_block
         convc1 = ub.encoder.convc1
@@ -79,7 +82,7 @@ class ERAFT(nn.Module):
                                   corr_projected=True)
             coords1 = coords1 + delta
             if collect_preds:
-                preds.append(convex_upsample(coords1 - coords0, mask, 8))
+                preds.append(bands.convex_upsample(coords1 - coords0, mask, 8))
         if not collect_preds:
-            preds.append(convex_upsample(coords1 - coords0, mask, 8))
+            preds.append(bands.convex_upsample(coords1 - coords0, mask, 8))
         return coords1 - coords0, torch.stack(preds)

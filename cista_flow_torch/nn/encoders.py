@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..ops import bands
 from ..ops.conv import batch_norm, conv2d, instance_norm
 from ..ops.cuda_norm import instance_norm_from_stats
 
@@ -38,6 +39,8 @@ class _Normed(nn.Module):
 
     def norm(self, x, bn: nn.BatchNorm2d | None, relu: bool):
         if self.norm_fn == "instance":
+            if bands.active() is not None:      # a row band: both routes combine K4s's statistics
+                return instance_norm(x, relu=relu)
             return NORM_ROUTES[self._norm_route](x, relu=relu)
         y = x if self.norm_fn == "none" else batch_norm(x, bn)
         return torch.relu(y) if relu else y

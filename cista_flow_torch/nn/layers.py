@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..ops import bands
 from ..ops.conv import conv2d
 from ..ops.cuda_ista2 import softshrink
 from ..ops.resize import resize_bilinear
@@ -43,7 +44,8 @@ class ConvLayer(nn.Module):
 
 class UpsampleConvLayer(nn.Module):
     """Bilinear x2 (align_corners=False) -> reflect pad -> conv
-    (ref: base_layers.py:168-212)."""
+    (ref: base_layers.py:168-212). On a row band of the frame, the band's
+    rows of the frame's x2 resize (from one halo row of each neighbour)."""
 
     def __init__(self, cin, cout, kernel_size=3, activation=None):
         super().__init__()
@@ -54,7 +56,10 @@ class UpsampleConvLayer(nn.Module):
         h, w = x.shape[2:]
         target = out_hw if out_hw is not None else (2 * h, 2 * w)
         pad = (self.conv2d.kernel_size[0] - 1) // 2
-        y = resize_bilinear(x, target, align_corners=False)
+        if bands.active() is not None:
+            y = bands.resize(x, 2, 1, padded=False, align_corners=False)
+        else:
+            y = resize_bilinear(x, target, align_corners=False)
         return _conv(self.conv2d, y, padding=pad, activation=self.activation)
 
 

@@ -5,6 +5,11 @@ Counterpart of cista_flow_tpu/ops/conv.py, without its TPU regroupings
 plain ops). ``instance_norm`` is kernel K4 on the card, and ``conv2d`` sends
 the square 3x3 convs of 64 and 128 channels to kernel K5, by the shape rule
 of the JAX dispatch (ops/conv.py there, pallas_conv.CHANNELS).
+
+On a row band of a sharded step (``bands.active()``) both take the band's
+rule (ops/bands.py): a conv of vertical radius r runs unchanged on the band
+widened by r halo rows from each neighbour and drops the rows its padding
+touched; instance norm combines the bands' K4s statistics.
 """
 from __future__ import annotations
 
@@ -13,7 +18,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
-from . import cuda_conv
+from . import bands, cuda_conv
 from .autograd import at_least_f32
 
 
@@ -35,6 +40,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
         stride = (stride, stride)
     if isinstance(padding, int):
         padding = (padding, padding)
+    if bands.active() is not None:
+        return _banded_conv2d(x, w, b, stride, padding, padding_mode, relu)
     if padding_mode not in ("zeros", "reflect"):
         raise ValueError(f"unknown padding_mode {padding_mode}")
     if x.shape[1] == w.shape[1] and routes_to_conv3x3(w.shape, stride, padding):
@@ -45,6 +52,22 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
         ph = pw = 0
     y = F.conv2d(x, w, b, stride=stride, padding=(ph, pw))
     return torch.relu(y) if relu else y
+
+
+def conv2d_rows(x, top, bottom, w, b=None, stride=(1, 1), padding=(0, 0),
+                padding_mode: str = "zeros", relu: bool = False) -> torch.Tensor:
+    """``conv2d`` of a row band from its halos (``bands.conv_halo`` rows
+    each, None at the frame's edge): the conv of the widened band, run as
+    on one process, cropped to the band's output rows."""
+    with bands.local():
+        y = conv2d(bands.widen(x, top, bottom), w, b, stride, padding, padding_mode, relu)
+    return bands.crop(y, top, x.shape[-2], stride[0])
+
+
+def _banded_conv2d(x, w, b, stride, padding, padding_mode, relu):
+    r = bands.conv_halo(w.shape[2], stride[0], padding[0])
+    top, bottom = bands.active().halo(x, r, r) if r else (None, None)
+    return conv2d_rows(x, top, bottom, w, b, stride, padding, padding_mode, relu)
 
 
 _STATS_FROZEN = 0          # > 0 inside ``frozen_bn_stats``
@@ -131,6 +154,12 @@ def batch_norm(x: torch.Tensor, bn: torch.nn.BatchNorm2d, eps: float = 1e-5,
 def instance_norm(x: torch.Tensor, eps: float = 1e-5,
                   relu: bool = False) -> torch.Tensor:
     """InstanceNorm2d (affine=False) with an optionally fused relu: kernel
-    K4 for CUDA tensors, its plain version on the CPU."""
-    from .cuda_norm import instance_norm_fused
-    return instance_norm_fused(x, eps, relu)
+    K4 for CUDA tensors, its plain version on the CPU. On a row band: each
+    band's statistics (K4s), combined over the ranks, normalise it."""
+    from .cuda_norm import instance_norm_fused, instance_norm_stats
+    band = bands.active()
+    if band is None:
+        return instance_norm_fused(x, eps, relu)
+    mean, inv = instance_norm_stats(x, eps)
+    stats = band.all_gather(bands.band_stats(mean, inv, x.shape[2] * x.shape[3], eps))
+    return bands.normalise(x, *bands.combine_stats(stats, eps), relu)

@@ -24,13 +24,17 @@ class CorrPyramid(NamedTuple):
 
 def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
                        num_levels: int = 4) -> CorrPyramid:
-    """fmap1/fmap2: (B, D, H, W) -> pyramid of correlation slices, stored in
-    the input dtype."""
+    """fmap1 (B, D, H1, W1), fmap2 (B, D, H2, W2) -> pyramid of correlation
+    slices (B*H1*W1, H2 / 2^l, W2 / 2^l), stored in the input dtype. On one
+    process both maps are the frame's; a row band correlates its ``fmap1``
+    rows with the whole frame's ``fmap2`` (the pooling is over the target
+    only, so the band's slices are the frame's)."""
     b, d, h, w = fmap1.shape
+    h2, w2 = fmap2.shape[2:]
     a = fmap1.reshape(b, d, h * w).transpose(1, 2)
-    m = fmap2.reshape(b, d, h * w)
+    m = fmap2.reshape(b, d, h2 * w2)
     corr = torch.matmul(a, m).float() / (float(d) ** 0.5)
-    corr = corr.to(fmap1.dtype).reshape(b * h * w, h, w)
+    corr = corr.to(fmap1.dtype).reshape(b * h * w, h2, w2)
     levels = [corr]
     for _ in range(num_levels - 1):
         corr = avg_pool2(corr)
@@ -79,10 +83,12 @@ def lookup_corr(pyr: CorrPyramid, coords: torch.Tensor,
     return win.contiguous().to(pyr.levels[0].dtype)
 
 
-def coords_grid(batch: int, h: int, w: int, device=None) -> torch.Tensor:
+def coords_grid(batch: int, h: int, w: int, device=None, row0: int = 0) -> torch.Tensor:
     """(B, 2, H, W) grid of (x, y) pixel coords, f32
-    (ref: DCEIFlow/utils/sample_utils.py:55-58)."""
-    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
+    (ref: DCEIFlow/utils/sample_utils.py:55-58); a row band's starts at its
+    first row ``row0`` of the frame (the lookup's coordinates are the
+    target frame's)."""
+    ys, xs = torch.meshgrid(torch.arange(row0, row0 + h, dtype=torch.float32, device=device),
                             torch.arange(w, dtype=torch.float32, device=device),
                             indexing="ij")
     return torch.stack([xs, ys], dim=0)[None].expand(batch, 2, h, w).contiguous()

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import bands
+
 
 class ImagePadder:
     def __init__(self, image_dim, min_size: int = 32):
@@ -25,3 +27,14 @@ class ImagePadder:
 
     def unpad(self, x: torch.Tensor) -> torch.Tensor:
         return x[:, :, self.pad_height:, self.pad_width:]
+
+
+def padder_for(image_dim, min_size: int = 32) -> ImagePadder:
+    """The padder of a frame, or of a row band of one (``bands.active()``):
+    the rows are padded at the frame's top only, so rank 0's band carries
+    them and no other band is padded in height."""
+    padder = ImagePadder(image_dim, min_size)
+    band = bands.active()
+    if band is not None:
+        padder.pad_height = band.pad_rows
+    return padder

@@ -63,15 +63,19 @@ def sample_pixel_coords(img: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
     return out.to(img.dtype)
 
 
-def frame_warp_coords(flow: torch.Tensor, sign: float):
+def frame_warp_coords(flow: torch.Tensor, sign: float, row0: int = 0,
+                      height: int | None = None):
     """Pixel sample coords of the reference frame warps: ``grid + sign *
     flow`` through the non-standard normalization 2*(x/W - 0.5)
     (ref: utils/flow_utils.py:113-119), mapped back to pixels as
-    grid_sample(align_corners=True) does."""
-    b, _, h, w = flow.shape
+    grid_sample(align_corners=True) does. ``flow`` holds the frame's rows
+    [row0, row0 + its rows) of a frame of ``height`` rows (default: the
+    flow's own, row0 0); the grid and the normalization are the frame's."""
+    b, _, rows, w = flow.shape
+    h = rows if height is None else height
     f = at_least_f32(flow)
     xx = torch.arange(w, dtype=f.dtype, device=flow.device)[None, None, :]
-    yy = torch.arange(h, dtype=f.dtype, device=flow.device)[None, :, None]
+    yy = torch.arange(row0, row0 + rows, dtype=f.dtype, device=flow.device)[None, :, None]
     gx = xx + sign * f[:, 0]
     gy = yy + sign * f[:, 1]
     nx = 2.0 * (gx / w - 0.5)
@@ -80,18 +84,20 @@ def frame_warp_coords(flow: torch.Tensor, sign: float):
 
 
 def frame_warp(img: torch.Tensor, flow: torch.Tensor, mode: str = "forward",
-               gate: torch.Tensor | None = None) -> torch.Tensor:
+               gate: torch.Tensor | None = None, row0: int = 0) -> torch.Tensor:
     """``FrameWarp.warp_frame`` (ref: utils/flow_utils.py:193-221):
     mode='forward' samples at grid - flow, 'backward' at grid + flow.
-    img (B, C, H, W); flow (B, 2, H, W) f32. ``gate``: None, or a 0-dim
-    bool tensor on img's device; where it is false the result is ``img``
-    unchanged (the reference's zero-flow short-circuit, selected on the
-    device inside the kernel)."""
+    img (B, C, H, W); flow (B, 2, H, W) f32, or a row band's (B, 2, rows,
+    W) whose first row is the frame's ``row0``: the result is then the
+    band's rows of the warp of the whole ``img``. ``gate``: None, or a
+    0-dim bool tensor on img's device; where it is false the result is
+    ``img`` (its rows) unchanged (the reference's zero-flow short-circuit,
+    selected on the device inside the kernel)."""
     from . import cuda_aug
     if mode == "forward":
-        return cuda_aug.warp_reflect(img, flow, -1.0, gate)
+        return cuda_aug.warp_reflect(img, flow, -1.0, gate, row0)
     if mode == "backward":
-        return cuda_aug.warp_reflect(img, flow, 1.0, gate)
+        return cuda_aug.warp_reflect(img, flow, 1.0, gate, row0)
     raise ValueError(f"unknown warp mode {mode}")
 
 

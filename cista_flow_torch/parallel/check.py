@@ -1,4 +1,5 @@
-"""Data-parallel runs held against one process: the functions each rank of
+"""Data-parallel training and row-sharded serving held against one process:
+the functions each rank of
 ``mesh.launch`` runs for the tests and ``chip_smoke.py`` (a spawned rank
 imports its function by name, and spawn re-imports ``__main__``, so they
 live in the package). Each rank writes what it computed to
@@ -11,6 +12,7 @@ import contextlib
 import hashlib
 import os
 
+import numpy as np
 import torch
 
 from . import mesh as data_mesh
@@ -139,6 +141,27 @@ def train_step_rank(mesh: data_mesh.DataMesh, jobs: list, out_dir: str) -> None:
     _save(mesh, out_dir, results)
 
 
+def _timed_window(recon, vox, gts) -> dict:
+    """Device ms per step of one more window (CUDA events, after the
+    counted one), and the NCCL kernels' share of a traced window's device
+    time."""
+    dev = recon.device
+    torch.cuda.synchronize(dev)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    recon.step_window(vox, gts, use_gt_flow=gts is not None, return_all=True)
+    stop.record()
+    torch.cuda.synchronize(dev)
+    ms = start.elapsed_time(stop) / len(vox)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        recon.step_window(vox, gts, use_gt_flow=gts is not None, return_all=True)
+        torch.cuda.synchronize(dev)
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.device_time_total for e in kernels)
+    nccl = sum(e.device_time_total for e in kernels if "nccl" in e.key.lower())
+    return {"ms": ms, "exchange_share": nccl / max(total, 1e-9)}
+
+
 def _digest(state: dict) -> str:
     """A SHA-1 of every tensor's bytes, in the state dict's order."""
     h = hashlib.sha1()
@@ -156,3 +179,74 @@ def _busy_share(step, model, seq, ms: float) -> float:
     kernels = sum(e.device_time_total for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     return kernels / ms
+
+
+# ----------------------------- row-sharded serving ---------------------------
+
+def spatial_rank(mesh: data_mesh.DataMesh, jobs: list, out_dir: str) -> None:
+    """Each job on this rank of a row-sharded run, by its ``kind``:
+
+    * "exchange" (``x``, a whole frame (..., H, W); ``sizes``, the bands'
+      rows; ``above``, ``below``): this rank's band of ``x``, its
+      ``spatial.halo``, the frame back through ``spatial.gather_rows``, and
+      the max over the ranks of a flag set on the last rank alone;
+    * "serve" (``cfg``, ``voxels`` (T, bins, H, W), optional ``gt_flows``
+      (T, 2, H, W), each an array or the path of a ``.npy``; ``window``: one
+      ``step_window`` of the T, or T calls of ``step``; optional ``timed``,
+      on the card; optional ``follow``: rank 0 resets, runs the window and
+      closes while the others ``follow()`` it): a row-sharded
+      ``Reconstructor`` on every rank, in lockstep unless ``follow``; rank 0
+      keeps the frames and flows (T, H, W) and (T, 2, H, W), every rank
+      its kernel launches, the bytes it sent, per kind, and whether its
+      band's last frame carries an autograd graph.
+      With ``timed`` the window runs twice more: once between CUDA events
+      (``ms``, per step) and once under the profiler (``exchange_share``:
+      the NCCL kernels' device time over the window's).
+    Saves the results in job order."""
+    from ..ops.cuda_build import kernel_counters
+    from ..runner import Reconstructor
+    from . import spatial
+    rows = spatial.RowMesh.of(mesh)
+    counters = kernel_counters()
+    results = []
+    for job in jobs:
+        if job["kind"] == "exchange":
+            x = torch.as_tensor(job["x"]).to(mesh.device)
+            first = sum(job["sizes"][:mesh.rank])
+            band = x[..., first:first + job["sizes"][mesh.rank], :].contiguous()
+            top, bottom = spatial.halo(rows, band, job["above"], job["below"])
+            flag = torch.tensor(int(mesh.rank == mesh.world - 1), device=mesh.device)
+            results.append({
+                "top": None if top is None else top.cpu(),
+                "bottom": None if bottom is None else bottom.cpu(),
+                "frame": spatial.gather_rows(rows, band, job["sizes"]).cpu(),
+                "max": int(spatial.all_reduce(rows, flag, torch.distributed.ReduceOp.MAX))})
+            continue
+        recon = Reconstructor(job["cfg"], mesh=rows)
+        vox, gts = (np.load(a) if isinstance(a, str) else a
+                    for a in (job["voxels"], job.get("gt_flows")))
+        use_gt = gts is not None
+        for k in counters.values():
+            k.launches = 0
+        if job.get("follow"):
+            out = None
+            if mesh.is_main:
+                recon.reset()
+                out = recon.step_window(vox, gts, use_gt_flow=use_gt, return_all=True)
+                recon.close()
+            else:
+                recon.follow()
+        elif job["window"]:
+            out = recon.step_window(vox, gts, use_gt_flow=use_gt, return_all=True)
+        else:
+            steps = [recon.step(v, None if gts is None else gts[t], use_gt_flow=use_gt)
+                     for t, v in enumerate(vox)]
+            out = None if steps[0] is None else tuple(np.stack(o) for o in zip(*steps))
+        res = {"out": out, "launches": {k: c.launches for k, c in counters.items()},
+               "sent": dict(recon.band.sent), "graph": recon.prev_image.requires_grad}
+        if job.get("timed"):
+            res.update(_timed_window(recon, vox, gts))
+        if not job.get("follow"):
+            recon.close()
+        results.append(res)
+    _save(mesh, out_dir, results)

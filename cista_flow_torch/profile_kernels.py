@@ -44,15 +44,16 @@ CORR_SHAPES = ((BATCH, 24, 32), (16 * BATCH, 24, 32), (3, 6, 6))
 ISTA_SHAPE = (BATCH, 64, 90, 120)
 
 
-def grid_sample_call(img: torch.Tensor, flow: torch.Tensor, sign: float):
+def grid_sample_call(img: torch.Tensor, flow: torch.Tensor, sign: float, row0: int = 0):
     """The ``F.grid_sample`` call that computes K2's warp on these inputs
-    (reflection padding, align_corners=True, the grid built once outside);
-    a yardstick the port never calls."""
+    (reflection padding, align_corners=True, the grid built once outside;
+    a row band's flow from the frame's row ``row0``); a yardstick the port
+    never calls."""
     import torch.nn.functional as F
     from cista_flow_torch.ops.warp import frame_warp_coords
 
     h, w = img.shape[-2:]
-    gx, gy = frame_warp_coords(flow, sign)
+    gx, gy = frame_warp_coords(flow, sign, row0, h)
     grid = torch.stack([gx / (w - 1) * 2 - 1, gy / (h - 1) * 2 - 1], -1).to(img.dtype)
     return lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="reflection",
                                  align_corners=True)

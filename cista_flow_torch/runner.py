@@ -11,6 +11,14 @@ recurrence), whose flow needs the previous voxel and no reconstruction.
 With ``use_gt_flow`` every mode's warps follow the given GT flows (and
 cista-eraft's window steps). In f32 the steps run with cuDNN's TF32 off
 (``device.cudnn_fp32``), and the caller's flags are left as they were.
+
+With a ``mesh`` (``parallel.spatial.RowMesh``: ``--mesh_shape N
+--mesh_axes spatial``) one stream's rows are split over N ranks, a process
+each (cista_flow_tpu/runner.py:74-86, 96-103): every rank keeps its band of
+the state, the previous frame and ``extra``; ``step``, ``step_window`` and
+``run_window`` take the whole frame on rank 0, which broadcasts it, and
+return the whole frame on rank 0 alone (None elsewhere). The other ranks
+either make the same calls, or ``follow()`` rank 0's until it ``close()``s.
 """
 from __future__ import annotations
 
@@ -23,6 +31,11 @@ import torch
 from . import weights
 from .device import DTYPES, cudnn_fp32, resolve_device
 from .models import composite
+from .models.cista_lstc import zero_state as cista_zero_state
+from .ops import bands
+
+# what rank 0 tells the other ranks of a row-sharded Reconstructor
+CLOSE, RESET, STEP, WINDOW = range(4)
 
 
 def model_name_from_cfg(cfg) -> str:
@@ -48,10 +61,18 @@ def checkpoint_and_name(cfg) -> tuple:
 
 
 class Reconstructor:
-    """Closed-loop reconstructor over a batch of ``batch`` streams."""
+    """Closed-loop reconstructor over a batch of ``batch`` streams; with a
+    ``mesh``, this rank's band of their rows."""
 
-    def __init__(self, cfg, device=None, batch: int = 1):
+    def __init__(self, cfg, device=None, batch: int = 1, mesh=None):
         self.cfgs = cfg
+        self.band = None
+        if mesh is not None and mesh.world > 1:
+            from .parallel import spatial
+            spatial.check_model(cfg)
+            self.band = spatial.RowBand(mesh, spatial.partition(cfg.image_dim, mesh.world,
+                                                                cfg.depth))
+            device = mesh.device
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
         self.batch = batch
@@ -68,15 +89,24 @@ class Reconstructor:
         self.model.to(self.device, self.dtype)
         self.iters = cfg.default_flow_iters()
         self.mode = cfg.model_mode
-        self.reset()
+        self._zero()
 
     def reset(self):
         """New sequence: zero state, zero previous frame and zero ``extra``:
         the previous voxel for cista-eraft, the chained next-step flow at
-        the padded resolution (a multiple of 32) for cista-idnet."""
+        the padded resolution (a multiple of 32) for cista-idnet. On a mesh
+        every rank zeroes its band (rank 0 tells the others)."""
+        if self.band is not None:
+            self._command(RESET)
+        self._zero()
+
+    def _zero(self):
         h, w = self.image_dim
+        if self.band is not None:
+            first, stop, _ = self.band.rows()
+            h = stop - first
         b, dt, dev = self.batch, self.dtype, self.device
-        self.state = composite.zero_state(b, self.cfgs, dt, dev)
+        self.state = cista_zero_state(b, (h, w), self.cfgs.base_channels, dt, dev)
         self.prev_image = torch.zeros((b, 1, h, w), dtype=dt, device=dev)
         self.extra = None
         if self.mode == "cista-eraft":
@@ -96,6 +126,14 @@ class Reconstructor:
         in f32) -> (rec (B, 1, H, W), flow (B, 2, H, W)); carries the state,
         the frame and ``extra``. The flow returned is the flow net's (the
         GT flow in the no-flow modes), as the JAX runner returns it."""
+        if self.band is not None:
+            recs, flows = self._on_bands(
+                STEP, None if events is None else events[None],
+                None if gt_flow is None else gt_flow[None])
+            return (None, None) if recs is None else (recs[0], flows[0])
+        return self._step(events, gt_flow)
+
+    def _step(self, events, gt_flow):
         batch_gt = {} if gt_flow is None else {"gt_flow": gt_flow}
         with self._precision():
             if self.mode == "cista-eraft":
@@ -122,6 +160,11 @@ class Reconstructor:
         the state, the last frame and ``extra`` to the next call. cista-eraft
         without GT flows takes the time-parallel window; with them it steps,
         as the JAX runner does (cista_flow_tpu/runner.py:152)."""
+        if self.band is not None:
+            return self._on_bands(WINDOW, events, gt_flows)
+        return self._window(events, gt_flows)
+
+    def _window(self, events, gt_flows):
         if self.mode == "cista-eraft" and gt_flows is None:
             with self._precision():
                 recs, flows, self.state = self.model.forward_window(
@@ -129,9 +172,71 @@ class Reconstructor:
                     self.state, iters=self.iters)
             self.prev_image, self.extra = recs[-1], events[-1]
             return recs, flows
-        out = [self.run_step(ev, None if gt_flows is None else gt_flows[t])
+        out = [self._step(ev, None if gt_flows is None else gt_flows[t])
                for t, ev in enumerate(events)]
         return torch.stack([r for r, _ in out]), torch.stack([f for _, f in out])
+
+    # ---- a row-sharded stream (``mesh``) ----
+
+    def _command(self, op, steps: int = 0, has_gt: bool = False) -> list:
+        """[op, steps, has_gt] as rank 0 sends it to every rank; ``op`` None
+        takes whatever rank 0 sends, else it must be rank 0's."""
+        from .parallel import spatial
+        head = torch.tensor([-1 if op is None else op, steps, int(has_gt)], dtype=torch.int64,
+                            device=self.device)
+        got = spatial.broadcast(self.band.mesh, head).tolist()
+        if op is not None and got[0] != op:
+            raise RuntimeError(f"rank {self.band.rank} called {op} where rank 0 called {got[0]}")
+        return got
+
+    def _on_bands(self, op, events, gt_flows, head=None):
+        """A step or a window on this rank's band: rank 0's whole-frame
+        ``events`` (and ``gt_flows``) broadcast, the band's rows run, the
+        whole frame's (recs, flows) gathered back to rank 0 ((None, None)
+        elsewhere)."""
+        from .parallel import spatial
+        band = self.band
+        if head is None:
+            lead = band.rank == 0
+            head = self._command(op, events.shape[0] if lead else 0,
+                                 lead and gt_flows is not None)
+        _, steps, has_gt = head
+        h, w = self.image_dim
+        if band.rank != 0:
+            events = torch.empty((steps, self.batch, self.cfgs.num_bins, h, w),
+                                 dtype=self.dtype, device=self.device)
+            gt_flows = (torch.empty((steps, self.batch, 2, h, w), device=self.device)
+                        if has_gt else None)
+        events = band.take(spatial.broadcast(band.mesh, events))
+        if has_gt:
+            gt_flows = band.take(spatial.broadcast(band.mesh, gt_flows))
+        with bands.rows(band):
+            if op == STEP:
+                rec, flow = self._step(events[0], gt_flows[0] if has_gt else None)
+                recs, flows = rec[None], flow[None]
+            else:
+                recs, flows = self._window(events, gt_flows)
+        recs, flows = band.gather_rows(recs), band.gather_rows(flows)
+        return (recs, flows) if band.rank == 0 else (None, None)
+
+    @torch.no_grad()
+    def follow(self) -> None:
+        """A rank other than 0 of a row-sharded stream: make rank 0's calls
+        (``reset``, ``run_step``, ``run_window`` and those through them)
+        until it calls ``close``."""
+        while True:
+            head = self._command(None)
+            if head[0] == CLOSE:
+                return
+            if head[0] == RESET:
+                self._zero()
+            else:
+                self._on_bands(head[0], None, None, head)
+
+    def close(self) -> None:
+        """End a row-sharded stream: the ranks in ``follow`` return."""
+        if self.band is not None:
+            self._command(CLOSE)
 
     def device_events(self, voxels) -> torch.Tensor:
         v = np.asarray(voxels, np.float32)
@@ -164,6 +269,9 @@ class Reconstructor:
         when B > 1. For cista-eraft this is the stepwise path (fnet on the
         previous and the current voxel); ``step_window`` is the
         time-parallel one."""
+        if self.band is not None and self.band.rank != 0:
+            self.run_step(None)          # rank 0's step, on this rank's band
+            return None
         gt = self.device_flows(None if gt_flow_chw is None else np.asarray(gt_flow_chw)[None],
                                1, use_gt_flow)
         rec, flow = self.run_step(self.device_events(np.asarray(voxel_chw)[None])[0],
@@ -177,7 +285,10 @@ class Reconstructor:
         the warps follow ``gt_flows_chw``, T flows (2, H, W). Returns the
         last step's (rec (H, W), flow (2, H, W)), or with ``return_all``
         every step's (recs (T, H, W), flows (T, 2, H, W)); a batch axis
-        follows T when B > 1."""
+        follows T when B > 1. On a mesh, rank 0's; None elsewhere."""
+        if self.band is not None and self.band.rank != 0:
+            self.run_window(None)        # rank 0's window, on this rank's band
+            return None
         if len(voxels) == 0:
             raise ValueError("empty window")
         recs, flows = self.run_window(self.device_events(voxels),

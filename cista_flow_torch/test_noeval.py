@@ -28,6 +28,7 @@ from . import config
 from .data.io import EventWriter, FlowWriter, ImageWriter, make_event_preview
 from .data.readers import STREAM_NAMES, FixedSizeEventReader, SingleEventReaderNpz
 from .events import event_preprocess, events_to_voxel_grid
+from .parallel import spatial
 from .runner import Reconstructor, discover_sequences
 from .timing import HostSplit
 
@@ -54,9 +55,10 @@ def voxelize(window: np.ndarray, cfg) -> np.ndarray:
     return voxel[:, ::-1, ::-1].copy() if cfg.dvs == "samsung" else voxel
 
 
-def run(cfg, device=None, split: HostSplit | None = None) -> None:
+def run(cfg, device=None, split: HostSplit | None = None,
+        recon: Reconstructor | None = None) -> None:
     split = split if split is not None else HostSplit()
-    recon = Reconstructor(cfg, device=device)
+    recon = recon if recon is not None else Reconstructor(cfg, device=device)
     if os.path.isdir(cfg.path_to_test_data):
         sequences = discover_sequences(cfg.path_to_test_data) or [cfg.path_to_test_data]
     else:
@@ -116,10 +118,15 @@ def frame_size(cfg) -> None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="inference without GT, PyTorch port")
     config.add_args(parser)
+    config.add_mesh_args(parser)
     args = parser.parse_args(argv)
     cfg = config.from_args(args)
     frame_size(cfg)
-    run(cfg, device=args.device)
+    world = spatial.serving_ranks(parser, cfg)
+    if world is None:
+        run(cfg, device=args.device)
+    else:
+        spatial.serve(world, args.device, "cista_flow_torch.test_noeval", "run", cfg)
     return 0
 
 

@@ -36,6 +36,7 @@ from . import config
 from .data.io import EvalWriter, FlowWriter, ImageWriter
 from .data.readers import ImageReader
 from .losses import flow_evaluate, recon_evaluate
+from .parallel import spatial
 from .runner import Reconstructor, discover_sequences
 from .timing import HostSplit
 
@@ -88,13 +89,14 @@ def finish(cfg, model_name, keys, rows, seq_means, total):
     return rows, keys, {k: float(v) for k, v in zip(keys, mean_all)}
 
 
-def evaluate_sequences(cfg, device=None, split: HostSplit | None = None):
+def evaluate_sequences(cfg, device=None, split: HostSplit | None = None,
+                       recon: Reconstructor | None = None):
     """Returns (rows, keys, mean): a row [name, per-metric means rounded to
     4 places, frames] per sequence, then the ``mean`` row; the metric
     names; and the unrounded mean over sequences as {metric: value}.
     ``split`` collects the host clock per item of the loop."""
     split = split if split is not None else HostSplit()
-    recon = Reconstructor(cfg, device=device)
+    recon = recon if recon is not None else Reconstructor(cfg, device=device)
     reader = ImageReader(cfg)
     rows, seq_means, keys, total = [], [], None, 0
     for path in discover_sequences(cfg.path_to_test_data):
@@ -134,8 +136,14 @@ def evaluate_sequences(cfg, device=None, split: HostSplit | None = None):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="with-flow eval of the PyTorch port")
     config.add_args(parser)
+    config.add_mesh_args(parser)
     args = parser.parse_args(argv)
-    evaluate_sequences(config.from_args(args), device=args.device)
+    cfg = config.from_args(args)
+    world = spatial.serving_ranks(parser, cfg)
+    if world is None:
+        evaluate_sequences(cfg, device=args.device)
+    else:
+        spatial.serve(world, args.device, "cista_flow_torch.test_with_flow", "evaluate_sequences", cfg)
     return 0
 
 

@@ -29,16 +29,18 @@ from . import config
 from .data.io import EvalWriter, EventWriter, FlowWriter, ImageWriter, make_event_preview
 from .data.readers import ImageReader
 from .losses import fwl_metric, recon_evaluate
+from .parallel import spatial
 from .runner import Reconstructor, discover_sequences
 from .test_with_flow import SKIP_FRAMES, finish, host_tensor, summarize
 from .timing import HostSplit
 from .utils import normalize_image
 
 
-def evaluate_sequences(cfg, device=None, split: HostSplit | None = None):
+def evaluate_sequences(cfg, device=None, split: HostSplit | None = None,
+                       recon: Reconstructor | None = None):
     """Returns (rows, keys, mean), as ``test_with_flow.evaluate_sequences``."""
     split = split if split is not None else HostSplit()
-    recon = Reconstructor(cfg, device=device)
+    recon = recon if recon is not None else Reconstructor(cfg, device=device)
     reader = ImageReader(cfg)
     rows, seq_means, keys, total = [], [], None, 0
     for path in discover_sequences(cfg.path_to_test_data):
@@ -83,8 +85,14 @@ def evaluate_sequences(cfg, device=None, split: HostSplit | None = None):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="real-data eval of the PyTorch port")
     config.add_args(parser)
+    config.add_mesh_args(parser)
     args = parser.parse_args(argv)
-    evaluate_sequences(config.from_args(args), device=args.device)
+    cfg = config.from_args(args)
+    world = spatial.serving_ranks(parser, cfg)
+    if world is None:
+        evaluate_sequences(cfg, device=args.device)
+    else:
+        spatial.serve(world, args.device, "cista_flow_torch.test_wo_flow", "evaluate_sequences", cfg)
     return 0
 
 

@@ -41,8 +41,8 @@ Counterpart of the JAX package's ``train.py`` (ref: train.py:27-269):
   and the loss those of the global batch; rank 0 alone writes the
   checkpoints and the log; batches reach the card through
   ``data/prefetch.py`` (two in flight).
-Not ported: the spatial mesh axis (ROADMAP.md, Queue 1, item 9) and the
-TensorBoard writer.
+Not ported: training on the spatial mesh axis (ROADMAP.md, Queue 1, item
+9.3; serving takes it, ``parallel/spatial.py``) and the TensorBoard writer.
 """
 from __future__ import annotations
 
@@ -266,9 +266,9 @@ class Trainer:
             ckpt.save_checkpoint(self.epoch_dir, epoch + 1, self.model, self.optimizer)
 
 
-SPATIAL_AXIS = ("the spatial mesh axis (the runner's --mesh_axes spatial and "
-                "make_train_step(spatial_axis=)) is not ported: ROADMAP.md, Queue 1, "
-                "item 9")
+SPATIAL_AXIS = ("training on the spatial mesh axis (make_train_step(spatial_axis=)) "
+                "is not ported: ROADMAP.md, Queue 1, item 9.3; the serving CLIs take "
+                "--mesh_axes spatial")
 
 
 def parse_args(argv=None) -> tuple[Config, str]:

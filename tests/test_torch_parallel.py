@@ -559,10 +559,11 @@ def test_train_cli_refuses_other_meshes(tmp_path, capsys, flags, message):
     """A mesh axis other than 'data', a mesh of more than one axis, and
     ``--distributed`` on the CPU without a rank count are refused with a
     message (the spatial axis's names ROADMAP's item); the serving CLIs
-    refuse both mesh flags (``config.TPU_ONLY_FLAGS``,
+    take both mesh flags (a spatial axis, tests/test_torch_spatial.py) and
+    refuse the other TPU-only flags (``config.TPU_ONLY_FLAGS``,
     tests/test_torch_cli.py)."""
     with pytest.raises(SystemExit):
         train.parse_args(["--path_to_train_data", str(tmp_path), *flags])
     assert message in capsys.readouterr().err
     from cista_flow_torch import config
-    assert set(config.MESH_FLAGS) <= set(config.TPU_ONLY_FLAGS)
+    assert not set(config.MESH_FLAGS) & set(config.TPU_ONLY_FLAGS)
