@@ -2,7 +2,7 @@
 """Drive the PyTorch/H100 port (cista_flow_torch) on one CUDA card.
 
     python3 chip_smoke.py [--kernels-only | --train-only | --pretrain-only | --dp-only |
-                           --spatial-only | --spatial-cards]
+                           --spatial-only | --spatial-cards | --spatial-train-only]
 
 Phases (any failure raises and the exit code is non-zero):
  1. the card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -141,8 +141,10 @@ Phases (any failure raises and the exit code is non-zero):
     by its halo beside the bare band; (a) two ranks sharing the card over
     gloo (a correctness check, not a speed figure), batch 1, 16 steps, at
     180x240 and 480x640: cista-eiflow (6,5) and cista-eraft (12,5) from the
-    sim40 anchors (eraft's window, and 16 x ``step`` at 180x240) and
-    cista-gtflow (depth 5, GT flows), f32 against one process on the card
+    sim40 anchors (eraft's window, and 16 x ``step`` at 180x240),
+    cista-gtflow (depth 5, GT flows), cista-idnet (1,5) from its sim40
+    anchor (``next_flow`` chained) and cista-eiflow ``flow_half`` (6,5) (the
+    flow net on the bands of the half frame), f32 against one process on the card
     within 1e-3, bf16 above 30 dB per step against it, each rank's
     launches of K1, K2, K3, K4s and K5
     (``rank_launches``), the bytes each rank sends per step; (b)
@@ -150,10 +152,20 @@ Phases (any failure raises and the exit code is non-zero):
     spatial`` as a command, the same files as one process; (c) with two
     cards or more, (a)'s bf16 windows on two NCCL ranks, a card each:
     device ms per step and the exchanges' share beside one card's.
+14. row-sharded training (``spatial_training``, ``train --mesh_shape 1,2
+    --mesh_axes data,spatial``'s step): (a) a ``1,2`` mesh of two gloo
+    ranks sharing the card, cista-eiflow (6,5) from the sim40 anchor at
+    180x240: one f32 step, T = 2, batch 1, in phase 2 and phase 3's flow
+    half against one process on the card (loss, ``leaf_report``, BN
+    running statistics, both ranks' states the same, launches per rank
+    ``spatial_train_launches``: K1, K2, K3, K4s and K5 on each rank); bf16,
+    phase 3's flow half, T = 10, 3 steps: device ms per step per rank,
+    launches, peak memory per rank, MB each rank's exchanges send per
+    step; (c) with two cards or more, (a) over NCCL, a card a rank.
     ``--train-only`` runs the build, the kernel checks and phases 9 to 12;
     ``--dp-only`` the build and phase 12; ``--spatial-only`` the build,
     phase 13's kernel checks and phase 13, ``--spatial-cards`` the build
-    and its (c);
+    and its (c); ``--spatial-train-only`` the build and phase 14;
     ``--pretrain-only`` the build, (c) and phase 11. ``--grad-sources``
     (not part of the smoke) builds and then compares the card's f32
     pretraining gradients and the CPU's with an f64 evaluation under
@@ -161,7 +173,8 @@ Phases (any failure raises and the exit code is non-zero):
 Each phase prints its time. The last lines are the ``kernels`` JSON (K1,
 K2, K4 and K4s with a row for each timed shape under ``shapes``, K1, K2,
 K4 and K5 also at the pretraining shapes; ``K2b``, K2 on the row bands of
-phase 13, its launches the ranks'), the
+phases 13 and 14, its launches the ranks' K2 launches, the training
+loss's whole-frame warps among them), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -248,7 +261,7 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     modes = ("--kernels-only", "--train-only", "--pretrain-only", "--grad-sources",
-             "--dp-only", "--spatial-only", "--spatial-cards")
+             "--dp-only", "--spatial-only", "--spatial-cards", "--spatial-train-only")
     if argv not in ([], *([m] for m in modes)):
         print(f"usage: chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -279,7 +292,7 @@ def main(argv) -> int:
     # ---- 3. kernels against their plain versions --------------------------
     # (the f32 plain versions are cuDNN convs: held in full f32 for the phase)
     checks = {}
-    alone = (["--dp-only"], ["--spatial-only"], ["--spatial-cards"])
+    alone = (["--dp-only"], ["--spatial-only"], ["--spatial-cards"], ["--spatial-train-only"])
     if argv not in (["--pretrain-only"], *alone):
         with cudnn_fp32():
             checks = kernel_checks(torch)
@@ -297,16 +310,17 @@ def main(argv) -> int:
     if argv == ["--kernels-only"]:
         return 0
 
-    # ---- 4.-13. the main paths, at the process's own TF32 flags ----------
-    # (K2b: K2's launches on the row bands of phase 13)
+    # ---- 4.-14. the main paths, at the process's own TF32 flags ----------
+    # (K2b: K2's launches on the ranks of phases 13 and 14)
     launches = {k: 0 for k in (*counters, "K2b")}
     phases = (flagship_path, eraft_path, variant_windows, f32_at_default_flags,
               gate_replay, serving_clis, idnet_path, long_chunks, training_path, train_modes,
-              flow_pretraining, data_parallel, spatial)
+              flow_pretraining, data_parallel, spatial, spatial_training)
     if argv:
-        phases = {"--train-only": phases[-5:-1], "--pretrain-only": (flow_pretraining,),
+        phases = {"--train-only": phases[-6:-2], "--pretrain-only": (flow_pretraining,),
                   "--dp-only": (data_parallel,), "--spatial-only": (spatial,),
-                  "--spatial-cards": (spatial_across_cards,)}[argv[0]]
+                  "--spatial-cards": (spatial_across_cards,),
+                  "--spatial-train-only": (spatial_training,)}[argv[0]]
     for phase in phases:
         t_phase = time.perf_counter()
         for key, n in phase(torch, repo, counters).items():
@@ -316,7 +330,7 @@ def main(argv) -> int:
     idle = [k for k, n in launches.items() if n == 0]
     if argv:
         path = ("K1", "K2", "K4", "K5") + (("K3",) if argv != ["--pretrain-only"] else ())
-        path += ("K4s", "K2b") if argv in (["--spatial-only"], ["--spatial-cards"]) else ()
+        path += ("K4s", "K2b") if argv in alone[1:] else ()
         idle = [k for k in path if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")
@@ -2851,6 +2865,48 @@ def dp_seq(torch, repo: Path, t_len: int, batch: int) -> str:
     return str(path)
 
 
+def step_against_one_process(torch, name, cfg, sd, seq, fix, mode, ranks, want) -> dict:
+    """The first train step of each rank of ``ranks`` (``parallel.check``'s
+    results) against one process's on cuda:0 on the global batch ``seq``
+    from the state dict ``sd``: the loss to 1e-5 relative, every gradient
+    leaf by ``leaf_report`` at 1e-3, the BN running statistics to 1e-4 of
+    their largest magnitude, the ranks' losses and states bit for bit the
+    same, each rank's launches ``want``. Returns the one process's
+    launches."""
+    from cista_flow_torch.models import composite
+    from cista_flow_torch.ops.cuda_build import kernel_counters
+    from cista_flow_torch.parallel import train_step as TS
+    r0 = ranks[0]
+    model = composite.init(cfg, device="cpu")
+    model.load_reference_state(sd)
+    model.to("cuda:0")
+    loss, got = counted(kernel_counters(), lambda: float(TS.make_train_step(
+        cfg, TS.make_optimizer(model, 1e-4), mode, fix, False)(model, seq)))
+    rel = abs(r0["losses"][0] - loss) / abs(loss)
+    print(f"  {name}: loss {len(ranks)} ranks {r0['losses'][0]:.7f}, one process {loss:.7f}, "
+          f"relative difference {rel:.3e} (tol 1e-5)")
+    if rel > 1e-5 or any(r["losses"] != r0["losses"] or r["digest"] != r0["digest"]
+                         for r in ranks):
+        raise AssertionError(f"{name}: loss {rel}, or the ranks' states differ")
+    ref = {k: p.grad.detach().float().cpu() for k, p in model.named_parameters()
+           if p.grad is not None}
+    if sorted(ref) != sorted(r0["grads"]):
+        raise AssertionError(f"{name}: the ranks' gradient leaves are not the process's")
+    leaf_report(name, r0["grads"], ref, 1e-3, fix == "rec")
+    worst = 0.0
+    for k, v in model.state_dict().items():
+        if "running" in k:
+            v = v.cpu()
+            worst = max(worst, float((r0["state"][k] - v).abs().max() / v.abs().max()))
+    print(f"    BN running statistics: largest difference {worst:.3e} of the "
+          "buffer's largest magnitude (tol 1e-4)")
+    if worst > 1e-4:
+        raise AssertionError(f"{name}: BN running statistics differ by {worst}")
+    for r, res in enumerate(ranks):
+        expect_launches(f"{name}, rank {r}", res["launches"][0], want)
+    return got
+
+
 def dp_against_one_process(torch, repo: Path, device: str, backend, tag: str) -> dict:
     """Two data-parallel ranks (``parallel.check.train_step_rank``) on
     ``device`` over ``backend`` against one process on cuda:0 on the global
@@ -2865,9 +2921,7 @@ def dp_against_one_process(torch, repo: Path, device: str, backend, tag: str) ->
     launches per rank and step. Returns the ranks' launches."""
     from cista_flow_torch import weights
     from cista_flow_torch.config import Config
-    from cista_flow_torch.models import composite
     from cista_flow_torch.parallel import check
-    from cista_flow_torch.parallel import train_step as TS
 
     iters, depth, anchor = TRAIN_POINT
     cfg = Config(image_dim=(H, W), depth=depth, flow_iters=iters)
@@ -2887,33 +2941,8 @@ def dp_against_one_process(torch, repo: Path, device: str, backend, tag: str) ->
     seq = {k: v.to("cuda:0") for k, v in torch.load(f32_seq, weights_only=True).items()}
     for (fix, mode, phase), r0, r1 in zip(DP_PHASES, ranks[0], ranks[1]):
         name = f"{tag}, {phase}, f32 T={DP_T}, global batch {DP_BATCH}"
-        model = composite.init(cfg, device="cpu")
-        model.load_reference_state(sd)
-        model.to("cuda:0")
-        loss = float(TS.make_train_step(cfg, TS.make_optimizer(model, 1e-4), mode, fix,
-                                        False)(model, seq))
-        rel = abs(r0["losses"][0] - loss) / abs(loss)
-        print(f"  {name}: loss two ranks {r0['losses'][0]:.7f}, one process {loss:.7f}, "
-              f"relative difference {rel:.3e} (tol 1e-5)")
-        if rel > 1e-5 or r0["losses"] != r1["losses"] or r0["digest"] != r1["digest"]:
-            raise AssertionError(f"{name}: loss {rel}, or the ranks' states differ")
-        ref = {k: p.grad.detach().float().cpu() for k, p in model.named_parameters()
-               if p.grad is not None}
-        if sorted(ref) != sorted(r0["grads"]):
-            raise AssertionError(f"{name}: the ranks' gradient leaves are not the process's")
-        leaf_report(name, r0["grads"], ref, 1e-3, fix == "rec")
-        worst = 0.0
-        for k, v in model.state_dict().items():
-            if "running" in k:
-                v = v.cpu()
-                worst = max(worst, float((r0["state"][k] - v).abs().max() / v.abs().max()))
-        print(f"    BN running statistics: largest difference {worst:.3e} of the "
-              "buffer's largest magnitude (tol 1e-4)")
-        if worst > 1e-4:
-            raise AssertionError(f"{name}: BN running statistics differ by {worst}")
-        for r, res in enumerate((r0, r1)):
-            expect_launches(f"{name}, rank {r}", res["launches"][0],
-                            train_launches(mode, iters, DP_T))
+        step_against_one_process(torch, name, cfg, sd, seq, fix, mode, (r0, r1),
+                                 train_launches(mode, iters, DP_T))
     r0, r1 = ranks[0][-1], ranks[1][-1]
     for r, res in enumerate((r0, r1)):
         for i, got in enumerate(res["launches"]):
@@ -3055,6 +3084,17 @@ def guard_on_second_card(torch) -> None:
     torch.cuda.synchronize(dev)
 
 
+def run_parts(parts, total: dict) -> dict:
+    """Run a phase's (tag, part) pairs in order, each part's launches added
+    to ``total``, printing each one's time."""
+    for tag, part in parts:
+        t0 = time.perf_counter()
+        for key, n in part().items():
+            total[key] += n
+        print(f"  {tag}: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def data_parallel(torch, repo: Path, counters: dict) -> dict:
     """Phase 12: data-parallel training. See the module's docstring."""
     total = {k: 0 for k in counters}
@@ -3069,24 +3109,23 @@ def data_parallel(torch, repo: Path, counters: dict) -> dict:
     else:
         parts.append(("(c) two ranks across cards over NCCL: not run, this machine has one card",
                       dict))
-    for tag, part in parts:
-        t0 = time.perf_counter()
-        for key, n in part().items():
-            total[key] += n
-        print(f"  {tag}: {time.perf_counter() - t0:.1f} s")
-    return total
+    return run_parts(parts, total)
 
 
-# phase 13: row-sharded serving. (mode, iters, depth, anchor, runs) at each
-# frame size; a run is (dtype, window): eraft also steps in f32, at 180x240
-# only (stepping holds the same function as the window; at 480x640 it would
-# take the phase past its two minutes)
+# phase 13: row-sharded serving. (mode, iters, depth, anchor, runs, flow_half)
+# at each frame size; a run is (dtype, window): eraft also steps in f32, at
+# 180x240 only (stepping holds the same function as the window; at 480x640
+# it would take the phase past its two minutes)
 SPATIAL_POINTS = (("cista-eiflow", 6, 5, "gate/flagship_sim40_f16.npz",
-                   (("float32", True), ("bfloat16", True))),
+                   (("float32", True), ("bfloat16", True)), False),
                   ("cista-eraft", 12, 5, "gate/eraft_sim40_f16.npz",
-                   (("float32", True), ("bfloat16", True), ("float32", False))),
+                   (("float32", True), ("bfloat16", True), ("float32", False)), False),
                   ("cista-gtflow", None, 5, "gate/flagship_sim40_f16.npz",
-                   (("float32", True), ("bfloat16", True))))
+                   (("float32", True), ("bfloat16", True)), False),
+                  ("cista-idnet", 1, 5, "gate/idnet_sim40_f16.npz",
+                   (("float32", True), ("bfloat16", True)), False),
+                  ("cista-eiflow", 6, 5, "gate/flagship_sim40_f16.npz",
+                   (("float32", True), ("bfloat16", True)), True))
 SPATIAL_SIZES = ((H, W), SAMSUNG)
 SPATIAL_K2 = {}          # the banded K2's row of the kernels line, once phase 13 ran
 
@@ -3218,7 +3257,9 @@ def spatial_ranks(torch, repo: Path, device: str, backend, tag: str, timed: bool
                   ref_device: str = "cuda:0") -> dict:
     """Phase 13 (a) or (c): 2 ranks (``parallel.check.spatial_rank``) on
     ``device`` over ``backend`` serve ``SPATIAL_POINTS`` at both sizes, 16
-    steps, batch 1, against one process on cuda:0 on the same inputs: f32
+    steps, batch 1 (cista-idnet with ``next_flow`` chained over the steps,
+    cista-eiflow ``flow_half`` on the bands of the half frame), against one
+    process on cuda:0 on the same inputs: f32
     frames and flows within phase 4's 1e-3 at every step, bf16 frames above
     30 dB against the f32 one process at every step, each rank's launches
     ``rank_launches``, rank 0 alone returning the frame. With ``timed``
@@ -3237,12 +3278,12 @@ def spatial_ranks(torch, repo: Path, device: str, backend, tag: str, timed: bool
     for hw in SPATIAL_SIZES:
         paths, arrays = spatial_inputs(torch, repo, hw)
         inputs[hw] = arrays
-        for mode, iters, depth, anchor, runs in SPATIAL_POINTS:
+        for mode, iters, depth, anchor, runs, half in SPATIAL_POINTS:
             for dtype, window in runs:
                 if (timed and dtype != "bfloat16") or (not window and hw != (H, W)):
                     continue
                 cfg = Config(image_dim=hw, model_mode=mode, depth=depth, flow_iters=iters,
-                             dtype=dtype, path_to_test_model=str(repo / anchor))
+                             dtype=dtype, flow_half=half, path_to_test_model=str(repo / anchor))
                 gt = paths[1] if mode == "cista-gtflow" else None
                 jobs.append(dict(kind="serve", cfg=cfg, voxels=paths[0], gt_flows=gt,
                                  window=window, timed=timed))
@@ -3254,11 +3295,12 @@ def spatial_ranks(torch, repo: Path, device: str, backend, tag: str, timed: bool
           f"{time.perf_counter() - t0:.1f} s")
     refs, failures = {}, []
     for (hw, mode, iters, depth, dtype, window), job, r0, r1 in zip(names, jobs, *ranks):
-        name = (f"{tag}, {mode} ({iters},{depth}) {hw[0]}x{hw[1]} {dtype} "
-                f"{'window' if window else f'{STEPS} x step'}")
+        half = job["cfg"].flow_half
+        name = (f"{tag}, {mode}{' flow_half' if half else ''} ({iters},{depth}) "
+                f"{hw[0]}x{hw[1]} {dtype} {'window' if window else f'{STEPS} x step'}")
         vox, gts = inputs[hw]
         gts = gts if mode == "cista-gtflow" else None
-        key = (hw, mode, window)
+        key = (hw, mode, window, half)
         if key not in refs:
             rec = Reconstructor(dataclasses.replace(job["cfg"], dtype="float32"),
                                 device=ref_device)
@@ -3392,12 +3434,100 @@ def spatial(torch, repo: Path, counters: dict) -> dict:
     else:
         parts.append(("(c) two ranks across cards over NCCL: not run, this machine has one card",
                       dict))
-    for tag, part in parts:
-        t1 = time.perf_counter()
-        for key, n in part().items():
-            total[key] += n
-        print(f"  {tag}: {time.perf_counter() - t1:.1f} s")
+    return run_parts(parts, total)
+
+
+# phase 14: row-sharded training. f32 T and batch of the check against one
+# process; bf16 T, batch and timed steps of the timing
+SPATIAL_TRAIN_T, SPATIAL_TRAIN_BATCH = 2, 1
+SPATIAL_BF16_T, SPATIAL_BF16_STEPS = 10, 3
+
+
+def spatial_train_launches(loss_mode: str, iters: int, t_len: int) -> dict:
+    """One rank's launches for a train step on its band (cista-eiflow):
+    one process's (``train_launches``: the loss runs on every rank, on the
+    whole frames gathered from the bands), each instance norm K4s's
+    statistics where one process runs K4."""
+    want = dict(train_launches(loss_mode, iters, t_len))
+    want["K4s"] = want.pop("K4")
+    return want
+
+
+def spatial_train_ranks(torch, repo: Path, device: str, backend, tag: str) -> dict:
+    """Phase 14 (a) or (c): a ``1,2`` (data, spatial) mesh
+    (``parallel.check.spatial_train_rank``) on ``device`` over ``backend``:
+    cista-eiflow (6,5) from the sim40 anchor at 180x240, one f32 step, T =
+    2, batch 1, in phase 2 and phase 3's flow half (cnet's BatchNorm trains
+    on every rank's rows; K1, K4s and the exchanges take gradients), against
+    one process on cuda:0: the loss to 1e-5 relative, every gradient leaf by
+    ``leaf_report`` at 1e-3, the BN running statistics to 1e-4 of their
+    largest magnitude, both ranks' states bit for bit the same, each rank's
+    launches ``spatial_train_launches``. Then bf16, phase 3's flow half, T =
+    10, batch 1, 3 timed steps: device ms per step per rank, launches per
+    rank and step, peak memory per rank and the MB each rank's exchanges
+    send per step, forward and backward. Returns the launches, the ranks'
+    K2 under 'K2b'."""
+    from cista_flow_torch import weights
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.ops.cuda_build import kernel_counters
+    from cista_flow_torch.parallel import check
+
+    iters, depth, anchor = TRAIN_POINT
+    cfg = Config(image_dim=(H, W), depth=depth, flow_iters=iters)
+    bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+    f32_seq = dp_seq(torch, repo, SPATIAL_TRAIN_T, SPATIAL_TRAIN_BATCH)
+    jobs = [dict(kind="step", grid=(1, 2), cfg=cfg, weights=str(repo / anchor), seq=f32_seq,
+                 fix=fix, loss_mode=mode, use_gt_flow=False) for fix, mode, _ in DP_PHASES]
+    jobs.append(dict(kind="step", grid=(1, 2), cfg=bf16, weights=str(repo / anchor),
+                     seq=dp_seq(torch, repo, SPATIAL_BF16_T, 1), fix="rec", loss_mode="both",
+                     use_gt_flow=False, steps=SPATIAL_BF16_STEPS))
+    t0 = time.perf_counter()
+    ranks = check.run(check.spatial_train_rank, 2, device, jobs,
+                      str(repo / "build" / "spatial_train" / "out"), backend=backend)
+    print(f"  {tag}: two ranks ran {len(jobs)} jobs in {time.perf_counter() - t0:.1f} s")
+    total = {k: 0 for k in (*kernel_counters(), "K2b")}
+    sd = weights.load_state_dict(str(repo / anchor))
+    seq = {k: v.to("cuda:0") for k, v in torch.load(f32_seq, weights_only=True).items()}
+    for (fix, mode, phase), r0, r1 in zip(DP_PHASES, ranks[0], ranks[1]):
+        name = f"{tag}, {phase}, f32 T={SPATIAL_TRAIN_T}, batch {SPATIAL_TRAIN_BATCH}"
+        got = step_against_one_process(torch, name, cfg, sd, seq, fix, mode, (r0, r1),
+                                       spatial_train_launches(mode, iters, SPATIAL_TRAIN_T))
+        for k, n in got.items():
+            total[k] += n
+    smi = nvidia_smi()
+    for r, res in enumerate(rank[-1] for rank in ranks):
+        for i, got in enumerate(res["launches"]):
+            expect_launches(f"{tag}, bf16 T={SPATIAL_BF16_T}, rank {r}, step {i + 1}", got,
+                            spatial_train_launches("both", iters, SPATIAL_BF16_T))
+        if not np.isfinite(res["losses"]).all():
+            raise AssertionError(f"{tag}: bf16 losses {res['losses']}")
+        sent = ", ".join(f"{k} {v / 1e6:.2f}" for k, v in res["sent"].items())
+        print(f"  {tag}, bf16 (6,5), T={SPATIAL_BF16_T}, batch 1, phase 3 flow half, rank {r}: "
+              "losses " + ", ".join(f"{x:.4f}" for x in res["losses"]) + "; device ms per "
+              "step " + ", ".join(f"{x:.1f}" for x in res["ms"]) + f"; peak memory "
+              f"{res['peak_gib']:.2f} GiB; MB sent per step {sent} on {smi}")
+    for rank in ranks:
+        for res in rank:
+            for got in res["launches"]:
+                for key, n in got.items():
+                    total["K2b" if key == "K2" else key] += n
     return total
+
+
+def spatial_training(torch, repo: Path, counters: dict) -> dict:
+    """Phase 14: row-sharded training. See the module's docstring."""
+    total = {k: 0 for k in (*counters, "K2b")}
+    parts = [("(a) 2 ranks on cuda:0 over gloo",
+              lambda: spatial_train_ranks(torch, repo, "cuda:0", "gloo",
+                                          "(a) 1,2 mesh, cuda:0, gloo"))]
+    if torch.cuda.device_count() >= 2:
+        parts.append(("(c) 2 ranks on 2 cards over NCCL",
+                      lambda: spatial_train_ranks(torch, repo, "cuda", None,
+                                                  "(c) 1,2 mesh, 2 cards, nccl")))
+    else:
+        parts.append(("(c) two ranks across cards over NCCL: not run, this machine has one card",
+                      dict))
+    return run_parts(parts, total)
 
 
 def cudnn_fp32_scope(torch, dtype: str):

@@ -10,10 +10,10 @@ reconstruct with CISTA-LSTC. Every mode takes ``batch_gt={'gt_flow'}``,
 which the warps then follow. For cista-eraft there is also the
 time-parallel window, the twin of ``apply_sequence_eraft``; for
 cista-eiflow the ``flow_half`` serving reduction. On a row band of a
-sharded step (cista-eiflow, cista-eraft, cista-lstc, cista-gtflow) each
-rank warps its own rows of the frame and of the code, sampling the whole
-previous frame and the whole code, gathered from the ranks, under the
-zero-flow gate of the whole flow.
+sharded step (every mode) each rank warps its own rows of the frame and of
+the code, sampling the whole previous frame and the whole code, gathered
+from the ranks, under the zero-flow gate of the whole flow; under
+``flow_half`` the flow net runs on the band's rows of the half frame.
 """
 from __future__ import annotations
 
@@ -63,7 +63,7 @@ class _Composite(nn.Module):
         cfg = self.cfg
         band = bands.active()
         if band is not None:
-            return self._warp_rows(band, rec_img0, state, flow_final)
+            return self._warp_rows(band, rec_img0, state, flow_final, half_flow)
         any_flow = torch.any(flow_final)        # nonzero, as flow != 0
         warped_i = frame_warp(rec_img0, flow_final, mode=cfg.warp_mode, gate=any_flow)
         if half_flow is None:
@@ -72,11 +72,12 @@ class _Composite(nn.Module):
                               gate=any_flow)
         return warped_i, state._replace(sparse_code=warped_z)
 
-    def _warp_rows(self, band, rec_img0, state: CistaState, flow_final):
+    def _warp_rows(self, band, rec_img0, state: CistaState, flow_final, half_flow=None):
         """``_warp_inputs`` of a row band: the gate is the flow's over every
         rank (a max), each warp writes the band's rows (K2's output row
         offset) from the whole source, and the code's flow is the band's
-        rows of the frame's x0.5 resize."""
+        rows of ``half_flow`` where it is given, else of the frame's x0.5
+        resize."""
         cfg = self.cfg
         if cfg.scale_factor != 0.5:
             raise ValueError("a row band's code is at half resolution: scale_factor 0.5")
@@ -84,7 +85,8 @@ class _Composite(nn.Module):
         frame = band.gather_rows(rec_img0, 1, padded=False)
         warped_i = frame_warp(frame, flow_final, mode=cfg.warp_mode, gate=any_flow,
                               row0=band.rows(1, padded=False)[0])
-        half_flow = bands.resize(flow_final, 1, 2, padded=False, align_corners=True)
+        if half_flow is None:
+            half_flow = bands.resize(flow_final, 1, 2, padded=False, align_corners=True)
         code = band.gather_rows(state.sparse_code, 2, padded=False)
         warped_z = frame_warp(code, half_flow, mode=cfg.warp_mode, gate=any_flow,
                               row0=band.rows(2, padded=False)[0])
@@ -135,7 +137,9 @@ class CistaEIFlow(_Composite):
         ``cfg.flow_half`` (serving; composite.py:147-171 of the JAX
         package): the flow net runs on the events and the frame at half
         size; the code's warp takes its flow as it is, the frame's warp its
-        x2 upsample with x2 magnitudes, which is ``batch_flow['flow_final']``."""
+        x2 upsample with x2 magnitudes, which is ``batch_flow['flow_final']``.
+        On a row band the flow net's frame is the band's rows of the half
+        frame (``parallel.spatial.partition(half=True)``)."""
         batch_gt = batch_gt or {}
         iters = iters if iters is not None else self.cfg.default_flow_iters()
         self.event_flownet.train(self.training and fix_net_name != "flow")
@@ -146,11 +150,11 @@ class CistaEIFlow(_Composite):
                 raise ValueError("flow_half serves and runs rec-phase graphs only: it takes "
                                  "no gt_img1 and no event_voxel_bw")
             batch_flow = dict(self.event_flownet(
-                interpolate_scale(events, 0.5, align_corners=False),
-                interpolate_scale(image1, 0.5, align_corners=False), iters=iters,
+                bands.rescale(events, 1, 2, align_corners=False),
+                bands.rescale(image1, 1, 2, align_corners=False), iters=iters,
                 collect_preds=collect_preds))
             half = batch_flow["flow_final"]
-            batch_flow["flow_final"] = 2.0 * interpolate_scale(half, 2.0, align_corners=True)
+            batch_flow["flow_final"] = 2.0 * bands.rescale(half, 2, 1, align_corners=True)
         else:
             batch_flow = self.event_flownet(
                 events, image1, iters=iters, collect_preds=collect_preds,

@@ -14,7 +14,10 @@ back as ``flow_init``. The reference's other branches are here too:
 by the delta unless ``add_delta``), the 'patch' scales of ``deblur_mode``,
 and ``input_flowmap``, a context LiteEncoder (``cnet``) over the running
 flow map that seeds the GRU state. No committed anchor carries ``cnet.*``
-weights.
+weights. On a row band of a sharded step each rank deblurs its rows of the
+padded voxel from the whole voxel, gathered from the ranks, and its convs
+and both convex upsamplings take their halos (ops/bands.py): the GRU's
+3x3 convs one row at 1/8 each, so the state needs no wider exchange.
 """
 from __future__ import annotations
 
@@ -24,41 +27,47 @@ import torch.nn.functional as F
 
 from ..nn.encoders import LiteEncoder
 from ..nn.gru import LiteUpdateBlock
-from ..ops.pad import ImagePadder
-from ..ops.upsample import convex_upsample
+from ..ops import bands
+from ..ops.pad import padder_for
 
 HIDDEN_DIM = 96
 INPUT_DIM = 64
 DOWNSAMPLE = 8
 
 
-def deblur(voxel: torch.Tensor, flow: torch.Tensor, mode: str = "voxel") -> torch.Tensor:
+def deblur(voxel: torch.Tensor, flow: torch.Tensor, mode: str = "voxel",
+           row0: int = 0) -> torch.Tensor:
     """Warp bin t of voxel (B, V, H, W) along flow (B, 2, H, W) scaled by
     t/(V-1) (``mode='voxel'``) or (t+0.5)/V (any other mode, the
     reference's 'patch' scales), sampling at (x + s*u) normalized by /(W-1)
     with ``align_corners=False`` and zeros padding, exactly as the reference
-    writes it (ref: idn/idedeq.py:74-92). Grid in f32."""
+    writes it (ref: idn/idedeq.py:74-92). Grid in f32. A row band's flow
+    (B, 2, rows, W) from the frame's row ``row0`` gives the band's rows of
+    the deblurred voxel."""
     b, v, h, w = voxel.shape
+    rows = flow.shape[2]
     dev = voxel.device
     xx = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
-    yy = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    yy = torch.arange(row0, row0 + rows, dtype=torch.float32, device=dev)[None, :, None]
     scales = torch.tensor([t / (v - 1) if mode == "voxel" else (t + 0.5) / v
                            for t in range(v)], dtype=torch.float32,
                           device=dev).reshape(v, 1, 1, 1)
     f = flow.float()
     gx = (xx[None] + f[None, :, 0] * scales) / (w - 1) * 2.0 - 1.0
     gy = (yy[None] + f[None, :, 1] * scales) / (h - 1) * 2.0 - 1.0
-    grid = torch.stack([gx, gy], dim=-1).reshape(v * b, h, w, 2)
+    grid = torch.stack([gx, gy], dim=-1).reshape(v * b, rows, w, 2)
     src = voxel.transpose(0, 1).reshape(v * b, 1, h, w).float()
     out = F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
                         align_corners=False)
-    return out.reshape(v, b, h, w).transpose(0, 1).to(voxel.dtype)
+    return out.reshape(v, b, rows, w).transpose(0, 1).to(voxel.dtype)
 
 
 def _deblur_bins(voxel, flow, mode):
     """``deblur`` as the module holds it at call time (``forward``'s own
-    ``deblur`` flag shadows the name; a profile may wrap the function)."""
-    return deblur(voxel, flow, mode)
+    ``deblur`` flag shadows the name; a profile may wrap the function); on
+    a row band, of the band's rows from the whole voxel."""
+    return deblur(bands.gather(voxel, 1, padded=True), flow, mode,
+                  bands.first_row(1, padded=True))
 
 
 class IDNet(nn.Module):
@@ -87,7 +96,7 @@ class IDNet(nn.Module):
         initial flow, then every iteration's delta), the last two with
         ``collect_preds`` (else empty, and the initial flow alone)}, in the
         input's dtype."""
-        padder = ImagePadder(event_bins.shape[2:], min_size=32)
+        padder = padder_for(event_bins.shape[2:], min_size=32)
         x_raw = padder.pad(event_bins)
         b, v, h, w = x_raw.shape
         flow_total = (torch.zeros((b, 2, h, w), dtype=x_raw.dtype, device=x_raw.device)
@@ -114,11 +123,11 @@ class IDNet(nn.Module):
             for t in range(v):
                 net = self.update_net.gru(net, feats[t])
             (dflow, mask), second = self.update_net.heads(net)
-            delta_flow = convex_upsample(dflow, mask, DOWNSAMPLE, flow_scale=8)
+            delta_flow = bands.convex_upsample(dflow, mask, DOWNSAMPLE, flow_scale=8)
             if collect_preds:
                 deltas.append(delta_flow)
             if second is not None:
-                next_flow = convex_upsample(*second, DOWNSAMPLE, flow_scale=8)
+                next_flow = bands.convex_upsample(*second, DOWNSAMPLE, flow_scale=8)
             flow_total = flow_total + delta_flow if deblur or add_delta else delta_flow
             if collect_preds:
                 preds.append(flow_total)

@@ -58,9 +58,12 @@ class KernelFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        inputs = ctx.saved_tensors
+        from . import bands
+        inputs = ctx.saved_tensors       # a remat recompute runs here, on the step's band
         wanted = ctx.needs_input_grad[3:]
-        with torch.enable_grad():
+        # the plain version runs on the inputs as they were given: a row
+        # band's kernels take a band already widened, with no exchange
+        with torch.enable_grad(), bands.local():
             xs = [None if t is None else t.detach().requires_grad_(need)
                   for t, need in zip(inputs, wanted)]
             outs = ctx.plain(*xs)

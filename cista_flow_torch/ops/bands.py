@@ -168,16 +168,17 @@ def resize_rows(x: torch.Tensor, first: int, in_h: int, out_hw, rows,
 
 
 def convex_upsample_rows(flow: torch.Tensor, top, bottom, mask: torch.Tensor,
-                         factor: int) -> torch.Tensor:
+                         factor: int, flow_scale: int | None = None) -> torch.Tensor:
     """``ops.upsample.convex_upsample`` of a band of the coarse flow whose
     3x3 zero-padded neighbourhood takes one halo row from each neighbour
     (None at the frame's edge, where the padding's zeros are the frame's)."""
     b, _, h, w = flow.shape
     r = factor
+    scale = float(factor if flow_scale is None else flow_scale)
     wide = widen(flow, top, bottom)
     first = 0 if top is None else top.shape[-2]
     m = torch.softmax(mask.float().view(b, 1, 9, r, r, h, w), dim=2)
-    nbr = F.unfold(wide.float() * float(factor), kernel_size=3, padding=1)
+    nbr = F.unfold(wide.float() * scale, kernel_size=3, padding=1)
     nbr = nbr.view(b, 2, 9, wide.shape[-2], w)[:, :, :, first:first + h]
     up = (m * nbr.reshape(b, 2, 9, 1, 1, h, w)).sum(dim=2)
     up = up.permute(0, 1, 4, 2, 5, 3).reshape(b, 2, h * r, w * r)
@@ -202,7 +203,7 @@ def resize(x: torch.Tensor, scale_in: int, scale_out: int, padded: bool,
            align_corners: bool) -> torch.Tensor:
     """The band's rows at 1/``scale_out`` of the frame's bilinear resize
     from 1/``scale_in``, from the band and one row of each neighbour: the
-    resizes here (x8 and x0.5 with align_corners, x2 without) read at most
+    resizes here (x8, x0.5 and x2 with align_corners, x2 and x0.5 without) read at most
     one row beyond a band's (``resize_rows`` raises otherwise)."""
     band = _ACTIVE
     top, bottom = band.halo(x, 1, 1)
@@ -220,9 +221,20 @@ def upflow(flow: torch.Tensor, factor: int) -> torch.Tensor:
     return resize(flow, factor, 1, True, True) * float(factor)
 
 
-def convex_upsample(flow: torch.Tensor, mask: torch.Tensor, factor: int) -> torch.Tensor:
-    """``ops.upsample.convex_upsample`` of E-RAFT's coarse flow."""
+def rescale(x: torch.Tensor, scale_in: int, scale_out: int,
+            align_corners: bool) -> torch.Tensor:
+    """``ops.resize.interpolate_scale`` by ``scale_in / scale_out`` of a map
+    at 1/``scale_in`` of the unpadded frame (``flow_half``'s x0.5 and x2);
+    on a row band, the band's rows of it."""
     if _ACTIVE is None:
-        return _upsample.convex_upsample(flow, mask, factor)
+        return _resize.interpolate_scale(x, scale_in / scale_out, align_corners)
+    return resize(x, scale_in, scale_out, False, align_corners)
+
+
+def convex_upsample(flow: torch.Tensor, mask: torch.Tensor, factor: int,
+                    flow_scale: int | None = None) -> torch.Tensor:
+    """``ops.upsample.convex_upsample`` of E-RAFT's and IDNet's coarse flows."""
+    if _ACTIVE is None:
+        return _upsample.convex_upsample(flow, mask, factor, flow_scale)
     top, bottom = _ACTIVE.halo(flow, 1, 1)
-    return convex_upsample_rows(flow, top, bottom, mask, factor)
+    return convex_upsample_rows(flow, top, bottom, mask, factor, flow_scale)

@@ -155,11 +155,12 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5,
                   relu: bool = False) -> torch.Tensor:
     """InstanceNorm2d (affine=False) with an optionally fused relu: kernel
     K4 for CUDA tensors, its plain version on the CPU. On a row band: each
-    band's statistics (K4s), combined over the ranks, normalise it."""
-    from .cuda_norm import instance_norm_fused, instance_norm_stats
+    band's statistics (K4s), combined over the ranks, normalise it;
+    differentiable through the statistics and their exchange."""
+    from .cuda_norm import band_instance_norm_stats, instance_norm_fused
     band = bands.active()
     if band is None:
         return instance_norm_fused(x, eps, relu)
-    mean, inv = instance_norm_stats(x, eps)
+    mean, inv = band_instance_norm_stats(x, eps)
     stats = band.all_gather(bands.band_stats(mean, inv, x.shape[2] * x.shape[3], eps))
     return bands.normalise(x, *bands.combine_stats(stats, eps), relu)

@@ -123,11 +123,24 @@ def _instance_norm_kernel(x, eps, relu):
     return y
 
 
+def band_instance_norm_stats(x: torch.Tensor, eps: float = 1e-5):
+    """``instance_norm_stats`` of a row band, whose statistics the ranks
+    combine (``ops.conv.instance_norm``), differentiable: K4s in forward,
+    autograd of ``instance_norm_stats_plain`` in backward. A band's norm
+    in training needs the gradient of its statistics; one process never
+    takes them alone."""
+    if on_cpu(x):
+        return instance_norm_stats_plain(x, eps)
+    return apply_kernel("K4s", functools.partial(instance_norm_stats, eps=eps),
+                        functools.partial(instance_norm_stats_plain, eps=eps), x)
+
+
 def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5):
     """Per-(sample, channel) mean and inverse std, f32 (B, C) each (K4s).
     The pair on its own has no backward (nor has it in the JAX package): on
     the card it raises where ``x`` requires a gradient; differentiate
-    ``instance_norm_from_stats``."""
+    ``instance_norm_from_stats`` (or, on a row band,
+    ``band_instance_norm_stats``)."""
     if on_cpu(x):
         return instance_norm_stats_plain(x, eps)
     refuse_grad("instance_norm_stats (K4s)", x)

@@ -1,4 +1,5 @@
-"""Data-parallel training and row-sharded serving held against one process:
+"""Data-parallel training, row-sharded serving and row-sharded training held
+against one process:
 the functions each rank of
 ``mesh.launch`` runs for the tests and ``chip_smoke.py`` (a spawned rank
 imports its function by name, and spawn re-imports ``__main__``, so they
@@ -107,38 +108,48 @@ def train_step_rank(mesh: data_mesh.DataMesh, jobs: list, out_dir: str) -> None:
         opt = make_optimizer(model, 1e-4)
         step = make_train_step(cfg, opt, job["loss_mode"], job["fix"], job["use_gt_flow"],
                                remat=job.get("remat", False), mesh=mesh)
-        out = {"losses": [], "launches": [], "ms": []}
-        cuda = mesh.device.type == "cuda"
-        for i in range(job.get("steps", 1)):
-            if cuda:
-                torch.cuda.synchronize(mesh.device)
-                if i == 1:
-                    torch.cuda.reset_peak_memory_stats(mesh.device)
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                start.record()
-            for k in counters.values():
-                k.launches = 0
-            loss = step(model, seq)
-            if cuda:
-                stop.record()
-                torch.cuda.synchronize(mesh.device)
-                if i > 0:
-                    out["ms"].append(start.elapsed_time(stop))
-            out["launches"].append({key: k.launches for key, k in counters.items()})
-            out["losses"].append(float(loss))
-            if i == 0:
-                state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-                out["digest"] = _digest(state)
-                if mesh.is_main:
-                    out["state"] = state
-                    out["grads"] = {n: p.grad.detach().float().cpu()
-                                    for n, p in model.named_parameters() if p.grad is not None}
-        if cuda and job.get("timed"):
-            out["peak_gib"] = torch.cuda.max_memory_allocated(mesh.device) / 2 ** 30
+        out = _run_steps(mesh, step, model, seq, job.get("steps", 1), counters)
+        if mesh.device.type == "cuda" and job.get("timed"):
             out["busy"] = _busy_share(step, model, seq, sum(out["ms"]) / len(out["ms"]))
         results.append(out)
     _save(mesh, out_dir, results)
+
+
+def _run_steps(mesh, step, model, seq, steps: int, counters) -> dict:
+    """``steps`` train steps: the losses and launches of each, a digest of
+    the state dict after the first (rank 0 also the state dict and the f32
+    gradients), and on the card the device ms of each step but the first
+    and the peak memory of those."""
+    out = {"losses": [], "launches": [], "ms": []}
+    cuda = mesh.device.type == "cuda"
+    for i in range(steps):
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats(mesh.device)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+        for k in counters.values():
+            k.launches = 0
+        loss = step(model, seq)
+        if cuda:
+            stop.record()
+            torch.cuda.synchronize(mesh.device)
+            if i > 0:
+                out["ms"].append(start.elapsed_time(stop))
+        out["launches"].append({key: k.launches for key, k in counters.items()})
+        out["losses"].append(float(loss))
+        if i == 0:
+            state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            out["digest"] = _digest(state)
+            if mesh.is_main:
+                out["state"] = state
+                out["grads"] = {n: p.grad.detach().float().cpu()
+                                for n, p in model.named_parameters() if p.grad is not None}
+    if cuda:
+        out["peak_gib"] = torch.cuda.max_memory_allocated(mesh.device) / 2 ** 30
+    return out
 
 
 def _timed_window(recon, vox, gts) -> dict:
@@ -249,4 +260,81 @@ def spatial_rank(mesh: data_mesh.DataMesh, jobs: list, out_dir: str) -> None:
         if not job.get("follow"):
             recon.close()
         results.append(res)
+    _save(mesh, out_dir, results)
+
+
+# ----------------------------- row-sharded training --------------------------
+
+def exchange_weights(rank: int, shapes: dict) -> dict:
+    """The seeded weights of ``exchange_objective``'s terms on ``rank``."""
+    g = torch.Generator().manual_seed(100 + rank)
+    return {k: torch.randn(s, generator=g, dtype=torch.float64) for k, s in shapes.items()}
+
+
+def exchange_objective(rank: int, band, top, bottom, frame, stats, normed) -> torch.Tensor:
+    """Rank ``rank``'s share of a scalar that reads every output of its
+    exchanges (the halos, the gathered frame, the stacked band sums, the
+    band normalised by the combined statistics), each weighted by seeded
+    noise: one process sums the shares over the ranks."""
+    outs = {"top": top, "bottom": bottom, "frame": frame, "stats": stats, "normed": normed}
+    outs = {k: v for k, v in outs.items() if v is not None}
+    w = exchange_weights(rank, {k: v.shape for k, v in outs.items()})
+    return sum((v * w[k].to(v.device)).sum() for k, v in outs.items())
+
+
+def spatial_train_rank(mesh: data_mesh.DataMesh, jobs: list, out_dir: str) -> None:
+    """Each job on this rank of a row-sharded training run, by its ``kind``:
+
+    * "exchange_grad" (``x`` a whole f64 frame (B, C, H, W), ``sizes``,
+      ``above``, ``below``): this rank's band of ``x`` through
+      ``spatial.halo``, ``gather_rows``, ``all_gather`` of its row sums and
+      the instance norm of its combined statistics, then the backward of
+      ``exchange_objective``: the band's gradient;
+    * "step" (``grid`` (D, S), and ``train_step_rank``'s keys): ``steps``
+      (default 1) train steps of ``make_train_step(mesh=Grid,
+      spatial_axis='spatial')`` on this rank's band of its data slice of
+      the global batch; saves what ``train_step_rank`` saves and the bytes
+      each kind of exchange sent per step.
+    Saves the results in job order."""
+    from ..ops import bands
+    from ..ops.cuda_build import kernel_counters
+    from ..ops.cuda_norm import band_instance_norm_stats
+    from . import spatial
+    from .train_step import make_optimizer, make_train_step
+    counters = kernel_counters()
+    results = []
+    for job in jobs:
+        if job["kind"] == "exchange_grad":
+            rows = spatial.RowMesh.of(mesh)
+            x = torch.as_tensor(job["x"]).to(mesh.device)
+            first = sum(job["sizes"][:mesh.rank])
+            band = x[..., first:first + job["sizes"][mesh.rank], :].clone().requires_grad_()
+            top, bottom = spatial.halo(rows, band, job["above"], job["below"])
+            frame = spatial.gather_rows(rows, band, job["sizes"])
+            stats = spatial.all_gather(rows, band.square().sum(-2))
+            st = bands.band_stats(*band_instance_norm_stats(band),
+                                  band.shape[-2] * band.shape[-1], 1e-5)
+            normed = bands.normalise(band, *bands.combine_stats(spatial.all_gather(rows, st),
+                                                                1e-5), False)
+            exchange_objective(mesh.rank, band, top, bottom, frame, stats, normed).backward()
+            results.append({"grad": band.grad.cpu()})
+            continue
+        d, s = job["grid"]
+        grid = data_mesh.make_grid(mesh, d, s)
+        cfg = job["cfg"]
+        seq = job["seq"]
+        if isinstance(seq, str):
+            seq = torch.load(seq, weights_only=True)
+        b = next(iter(seq.values())).shape[1] // d
+        seq = {k: v.narrow(1, grid.data_index * b, b).contiguous().to(mesh.device)
+               for k, v in seq.items()}
+        model = _model(cfg, job, mesh.device)
+        data_mesh.replicate_(model)
+        opt = make_optimizer(model, 1e-4)
+        step = make_train_step(cfg, opt, job["loss_mode"], job["fix"], job["use_gt_flow"],
+                               remat=job.get("remat", False), mesh=grid, spatial_axis="spatial")
+        steps = job.get("steps", 1)
+        out = _run_steps(mesh, step, model, seq, steps, counters)
+        out["sent"] = {k: v / steps for k, v in step.band.sent.items()}
+        results.append(out)
     _save(mesh, out_dir, results)

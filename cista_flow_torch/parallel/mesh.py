@@ -153,6 +153,71 @@ def launch(fn, world: int, device, *args, backend: str | None = None) -> None:
                                 nprocs=world, join=True)
 
 
+# ----------------------------- the 2-D mesh --------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """One rank of a (data, spatial) mesh of ``data`` x ``spatial`` ranks,
+    numbered ``d * spatial + s`` (the row-major order of the JAX package's
+    ``make_mesh``): the ranks of one data index hold the bands of one slice
+    of the batch (``spatial_group``, members ``spatial_peers``; None: the
+    default group). The gradients need no group of the data axis: summed
+    over every rank and divided by ``data`` they are the sum over the bands
+    averaged over the slices."""
+    mesh: DataMesh
+    data: int
+    spatial: int
+    spatial_group: object
+    spatial_peers: tuple
+
+    @property
+    def data_index(self) -> int:
+        return self.mesh.rank // self.spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.mesh.rank % self.spatial
+
+    @property
+    def is_main(self) -> bool:
+        return self.mesh.is_main
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    def barrier(self) -> None:
+        self.mesh.barrier()
+
+    def loader_shard(self) -> dict:
+        """The loader's shard of this rank: its data index's slice of the
+        host batch (every band of a slice reads the same sequences). A host
+        holds whole spatial groups."""
+        m = self.mesh
+        if m.local_world % self.spatial:
+            raise ValueError(f"{m.local_world} ranks a host do not hold whole spatial groups "
+                             f"of {self.spatial}")
+        return dict(process_index=m.host, process_count=m.n_hosts,
+                    local_index=m.local_rank // self.spatial,
+                    local_count=m.local_world // self.spatial)
+
+
+def make_grid(mesh: DataMesh, data: int, spatial: int) -> Grid:
+    """The (data, spatial) mesh over every rank of ``mesh``. With more than
+    one data index each rank makes every spatial group (``dist.new_group``
+    is collective, in one order on all ranks) and keeps its own; with one,
+    the spatial axis is the default group."""
+    if data * spatial != mesh.world:
+        raise ValueError(f"a {data}x{spatial} mesh over {mesh.world} ranks")
+    d = mesh.rank // spatial
+    group = None
+    if data > 1 and spatial > 1:
+        for i in range(data):
+            g = dist.new_group(list(range(i * spatial, (i + 1) * spatial)))
+            group = g if i == d else group
+    return Grid(mesh, data, spatial, group, tuple(range(d * spatial, (d + 1) * spatial)))
+
+
 # ----------------------------- collectives ---------------------------------
 
 def replicate_(module: torch.nn.Module) -> None:
@@ -163,11 +228,12 @@ def replicate_(module: torch.nn.Module) -> None:
             dist.broadcast(t.data, 0)
 
 
-def all_reduce_mean_(tensors) -> None:
+def all_reduce_mean_(tensors, divisor: int | None = None) -> None:
     """Each tensor replaced by its mean over the ranks, in place: one
     flattened bucket per dtype, summed (gloo has no AVG) and divided by the
-    world size."""
-    world = dist.get_world_size()
+    world size (or by ``divisor``: the data axis's size, where the ranks of
+    a spatial axis hold partial sums)."""
+    world = dist.get_world_size() if divisor is None else divisor
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)

@@ -25,7 +25,17 @@ Counterpart of cista_flow_tpu/parallel/train_step.py (ref: train.py:180-232):
   (``ops.conv.global_bn_stats``), the trained leaves' f32 gradients and
   the loss are averaged over the ranks in one bucket, and every rank takes
   the same Adam step, as the JAX package's step does over a mesh with the
-  batch sharded on 'data'.
+  batch sharded on 'data';
+* with a (data, spatial) ``Grid`` and ``spatial_axis='spatial'`` each rank
+  of a data slice steps on its band of rows (``parallel/spatial.py``),
+  as the JAX step constrains the activations to ``P('data', 'spatial')``:
+  the model's exchanges are differentiable, BatchNorm's statistics are
+  over every rank's rows and batch, and the loss is the whole frame's,
+  computed on every band from the gathered outputs and whole targets
+  (replicated: its backward is scaled by 1/S, else the gathers' summing
+  backward would give each band its gradient S times). Each rank's
+  parameter gradients are then its band's share; summed over every rank
+  and divided by the data axis's size they are the global batch's.
 
 On the card every kernel of the step runs in forward (K1-K5), and each
 kernel's gradient is autograd of its plain version (``ops/autograd.py``).
@@ -40,8 +50,11 @@ from torch.utils.checkpoint import checkpoint
 from ..device import DTYPES, cudnn_fp32
 from ..losses.recon import flow_recon_loss
 from ..models import composite
+from ..models.cista_lstc import zero_state as cista_zero_state
+from ..ops import bands
 from ..ops.conv import frozen_bn_stats, global_bn_stats
 from . import mesh as data_mesh
+from . import spatial
 
 SUBNETS = {"rec": "cista_net", "flow": "event_flownet"}   # fix_net_name -> module
 
@@ -135,6 +148,28 @@ def _step_inputs(cfg, seq: dict, s: int, dtype: torch.dtype, use_gt_flow: bool) 
     return kw
 
 
+# the model's inputs a rank takes its band of; the loss's targets stay whole
+BAND_INPUTS = ("event_voxel", "event_voxel_old", "event_voxel_bw", "gt_img1", "gt_flow")
+# the flow outputs the sequence flow loss reads: flows at full resolution,
+# DCEIFlow's feature maps at 1/cfg.ds, both of the padded frame
+FLOW_PREDS = ("flow_preds", "flow_preds_bw")
+FEATURES = ("fmap2_gt", "fmap2_pseudo", "fmap1_gt", "fmap1_pseudo")
+
+
+def _gathered_flow(band, batch_flow: dict, cfg) -> dict:
+    """The whole frame's flow outputs of a band's ``batch_flow``, those the
+    flow loss reads."""
+    out = {}
+    for k in FLOW_PREDS + FEATURES:
+        v = batch_flow.get(k)
+        if v is None:
+            continue
+        scale = 1 if k in FLOW_PREDS else cfg.ds
+        out[k] = ([band.gather_rows(t, scale, True) for t in v] if isinstance(v, list)
+                  else band.gather_rows(v, scale, True))
+    return out
+
+
 def _remat_contexts():
     """The forward runs as it is; the recompute leaves BatchNorm's running
     statistics alone (they were updated once, in the forward)."""
@@ -143,7 +178,7 @@ def _remat_contexts():
 
 def unroll_loss(model, seq: dict, cfg, loss_mode: str, fix_net_name, use_gt_flow: bool,
                 dtype: torch.dtype = torch.float32, lpips_params=None,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, band=None) -> torch.Tensor:
     """The summed loss of one (T, B, ...) sequence batch through the
     composite, stepped in ``dtype`` (the model's parameters read in it).
     With ``remat`` each unroll step runs under non-reentrant
@@ -151,18 +186,32 @@ def unroll_loss(model, seq: dict, cfg, loss_mode: str, fix_net_name, use_gt_flow
     backward instead of kept (the JAX package's ``jax.checkpoint`` of the
     scan body), and the recompute does not update BatchNorm's statistics
     a second time. The backward must then run while the parameters read
-    in ``dtype`` (inside ``parameters_as``)."""
-    events = seq["event_voxel"]
+    in ``dtype`` (inside ``parameters_as``).
+
+    ``band`` (a ``parallel.spatial.RowBand``, inside ``ops.bands.rows``):
+    the model steps on the band's rows of the inputs of the whole-frame
+    ``seq``, and the loss is the whole frame's, from the outputs gathered
+    from the ranks."""
+    inputs = seq if band is None else {k: band.take(v) if k in BAND_INPUTS else v
+                                       for k, v in seq.items()}
+    events = inputs["event_voxel"]
     t_len, batch = events.shape[:2]
-    state = composite.zero_state(batch, cfg, dtype, events.device)
-    rec = torch.zeros((batch, 1, *events.shape[3:]), dtype=dtype, device=events.device)
+    hw = events.shape[3:]
+    state = cista_zero_state(batch, hw, cfg.base_channels, dtype, events.device)
+    rec = torch.zeros((batch, 1, *hw), dtype=dtype, device=events.device)
     targets = [k for k in ("gt_img0", "gt_img1", "gt_flow", "gt_flow_bw") if k in seq]
 
     def step(s, rec, state):
         out, batch_flow, state = model(
             events[s].to(dtype), rec, state, collect_preds=True, fix_net_name=fix_net_name,
-            **_step_inputs(cfg, seq, s, dtype, use_gt_flow))
-        loss = flow_recon_loss(out, rec, batch_flow, {k: seq[k][s] for k in targets}, cfg,
+            **_step_inputs(cfg, inputs, s, dtype, use_gt_flow))
+        frame, prev = out, rec
+        if band is not None:
+            if loss_mode != "flow":
+                frame, prev = band.gather_rows(out), band.gather_rows(rec)
+            if loss_mode != "rec":
+                batch_flow = _gathered_flow(band, batch_flow, cfg)
+        loss = flow_recon_loss(frame, prev, batch_flow, {k: seq[k][s] for k in targets}, cfg,
                                loss_mode, lpips_params=lpips_params,
                                is_loss_consis=loss_mode == "rec" and s >= 2)
         return loss, out, state
@@ -180,7 +229,7 @@ def unroll_loss(model, seq: dict, cfg, loss_mode: str, fix_net_name, use_gt_flow
 
 def make_train_step(cfg, optimizer: torch.optim.Optimizer, loss_mode: str,
                     fix_net_name: str | None, use_gt_flow: bool, lpips_params=None,
-                    remat: bool = False, mesh=None):
+                    remat: bool = False, mesh=None, spatial_axis: str | None = None):
     """The train step of one phase: ``step(model, seq) -> loss`` (a 0-dim f32
     tensor on the model's device). ``seq``: dict of (T, B, C, H, W) f32
     tensors on that device, event_voxel, gt_img0, gt_img1, gt_flow
@@ -195,8 +244,22 @@ def make_train_step(cfg, optimizer: torch.optim.Optimizer, loss_mode: str,
     global batch's statistics (in the forward and in remat's recompute),
     the trained leaves' gradients (the f32 masters', after the zero fill)
     are averaged over the ranks with the loss in one all-reduce, and the
-    returned loss is the global batch's, still on the device."""
+    returned loss is the global batch's, still on the device.
+
+    ``mesh`` a ``parallel.mesh.Grid`` and ``spatial_axis='spatial'``: ``seq``
+    is this rank's data slice, whole frames; the rank steps on its band of
+    rows (``unroll_loss(band=)``), BatchNorm's statistics are over every
+    rank, and the step's ``band`` attribute counts the bytes the rank's
+    exchanges sent (``RowBand.sent``)."""
     dtype = DTYPES[cfg.dtype]
+    band = None
+    if spatial_axis is not None:
+        if spatial_axis != "spatial" or not isinstance(mesh, data_mesh.Grid):
+            raise ValueError(f"spatial_axis {spatial_axis!r}: a (data, spatial) Grid mesh and "
+                             "the axis 'spatial'")
+        if mesh.spatial > 1:
+            band = spatial.RowBand(spatial.RowMesh.of_grid(mesh),
+                                   spatial.partition_for(cfg, mesh.spatial))
 
     def step(model: torch.nn.Module, seq: dict) -> torch.Tensor:
         model.train()
@@ -207,17 +270,35 @@ def make_train_step(cfg, optimizer: torch.optim.Optimizer, loss_mode: str,
                      else contextlib.nullcontext())
         stats = (global_bn_stats(data_mesh.all_reduce_sum) if mesh is not None
                  else contextlib.nullcontext())
-        with precision, stats:
+        with precision, stats, _on(band):
             with parameters_as(model, dtype):            # one cast per optimizer step
                 loss = unroll_loss(model, seq, cfg, loss_mode, fix_net_name, use_gt_flow,
-                                   dtype, lpips_params, remat)
-                loss.backward()
+                                   dtype, lpips_params, remat, band)
+                (loss if band is None else loss / band.mesh.world).backward()
         loss = loss.detach()
         fill_grads(model)
         if mesh is not None:
+            grid = isinstance(mesh, data_mesh.Grid)
+            if grid:
+                loss = loss / mesh.spatial       # every band holds its slice's loss
             data_mesh.all_reduce_mean_([p.grad for p in model.parameters()
-                                        if p.grad is not None] + [loss])
+                                        if p.grad is not None] + [loss],
+                                       divisor=mesh.data if grid else None)
         optimizer.step()
         return loss
 
+    step.band = band
     return step
+
+
+@contextlib.contextmanager
+def _on(band):
+    """The step on ``band``'s rows (nothing without one). A remat recompute
+    runs the whole unroll step again, its exchanges included: with the
+    early stop of ``torch.utils.checkpoint`` a band could stop before an
+    exchange that another band's recompute makes."""
+    if band is None:
+        yield
+        return
+    with bands.rows(band), torch.utils.checkpoint.set_checkpoint_early_stop(False):
+        yield

@@ -69,9 +69,7 @@ class Reconstructor:
         self.band = None
         if mesh is not None and mesh.world > 1:
             from .parallel import spatial
-            spatial.check_model(cfg)
-            self.band = spatial.RowBand(mesh, spatial.partition(cfg.image_dim, mesh.world,
-                                                                cfg.depth))
+            self.band = spatial.RowBand(mesh, spatial.partition_for(cfg, mesh.world))
             device = mesh.device
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
@@ -95,16 +93,20 @@ class Reconstructor:
         """New sequence: zero state, zero previous frame and zero ``extra``:
         the previous voxel for cista-eraft, the chained next-step flow at
         the padded resolution (a multiple of 32) for cista-idnet. On a mesh
-        every rank zeroes its band (rank 0 tells the others)."""
+        every rank zeroes its band (rank 0 tells the others); cista-idnet's
+        is the band's rows of the padded frame, rank 0's with the padding."""
         if self.band is not None:
             self._command(RESET)
         self._zero()
 
     def _zero(self):
         h, w = self.image_dim
+        hp = (h + 31) // 32 * 32
         if self.band is not None:
             first, stop, _ = self.band.rows()
             h = stop - first
+            first, stop, _ = self.band.rows(padded=True)
+            hp = stop - first
         b, dt, dev = self.batch, self.dtype, self.device
         self.state = cista_zero_state(b, (h, w), self.cfgs.base_channels, dt, dev)
         self.prev_image = torch.zeros((b, 1, h, w), dtype=dt, device=dev)
@@ -112,8 +114,7 @@ class Reconstructor:
         if self.mode == "cista-eraft":
             self.extra = torch.zeros((b, self.cfgs.num_bins, h, w), dtype=dt, device=dev)
         elif self.mode == "cista-idnet":
-            self.extra = torch.zeros((b, 2, (h + 31) // 32 * 32, (w + 31) // 32 * 32),
-                                     dtype=dt, device=dev)
+            self.extra = torch.zeros((b, 2, hp, (w + 31) // 32 * 32), dtype=dt, device=dev)
 
     def _precision(self):
         """f32: cuDNN without TF32 for the call; bf16: the caller's flags."""

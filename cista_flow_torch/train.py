@@ -5,7 +5,8 @@ three-phase schedule, BPTT over sequences, every model mode.
         --path_to_train_data DIR [--path_to_e2vflow CKPT] [--epochs N] ...
         [--remat] [--save_every_steps N] [--orbax_ckpt]
         [--load_epoch_for_train E | -1] [--device cpu] [--dtype bfloat16]
-        [--distributed | --mesh_shape N [--mesh_axes data]]
+        [--distributed | --mesh_shape N [--mesh_axes data | spatial]
+         | --mesh_shape D,S --mesh_axes data,spatial]
     torchrun --nproc_per_node N -m cista_flow_torch.train ...
 
 Counterpart of the JAX package's ``train.py`` (ref: train.py:27-269):
@@ -63,7 +64,7 @@ from .device import resolve_device
 from .losses import lpips
 from .models import composite
 from .ops import cuda_build
-from .parallel import make_optimizer, make_train_step, mesh as data_mesh, set_lr, step_lr
+from .parallel import make_optimizer, make_train_step, mesh as data_mesh, set_lr, spatial, step_lr
 
 FLOW_MODES = ("cista-eiflow", "cista-eraft", "cista-idnet")
 
@@ -115,9 +116,12 @@ class Trainer:
     With a ``mesh`` (one ``DataMesh`` rank) the model is broadcast from
     rank 0, the loader yields this rank's slice of each host batch, the
     step is the data-parallel one, and rank 0 alone writes and logs, the
-    others waiting at a barrier after each save."""
+    others waiting at a barrier after each save. With a ``Grid`` (a rank of
+    a (data, spatial) mesh) the loader yields its data index's slice and
+    the step runs on the rank's band of its rows."""
 
-    def __init__(self, cfgs: Config, device=None, mesh: data_mesh.DataMesh | None = None):
+    def __init__(self, cfgs: Config, device=None,
+                 mesh: data_mesh.DataMesh | data_mesh.Grid | None = None):
         phase_for_epoch(cfgs, 0)              # refuses an unknown mode
         self.cfgs = cfgs
         self.mesh = mesh
@@ -165,9 +169,12 @@ class Trainer:
 
         ds = TrainSequenceDataset(
             os.path.join(cfgs.path_to_train_data, "train_e2v_estflow.txt"), cfgs)
-        shard = {} if mesh is None else dict(
-            process_index=mesh.host, process_count=mesh.n_hosts,
-            local_index=mesh.local_rank, local_count=mesh.local_world)
+        if isinstance(mesh, data_mesh.Grid):
+            shard = mesh.loader_shard()
+        else:
+            shard = {} if mesh is None else dict(
+                process_index=mesh.host, process_count=mesh.n_hosts,
+                local_index=mesh.local_rank, local_count=mesh.local_world)
         self.loader = StackedSequenceLoader(ds, batch_size=cfgs.batch_size,
                                             len_sequence=max(cfgs.len_sequence, 1),
                                             shuffle=cfgs.shuffle, seed=cfgs.seed, **shard)
@@ -215,7 +222,9 @@ class Trainer:
             self._steps[key] = make_train_step(self.cfgs, self.optimizer, loss_mode,
                                                fix_net_name, use_gt_flow,
                                                lpips_params=self.lpips_params,
-                                               remat=self.cfgs.remat, mesh=self.mesh)
+                                               remat=self.cfgs.remat, mesh=self.mesh,
+                                               spatial_axis="spatial" if isinstance(
+                                                   self.mesh, data_mesh.Grid) else None)
         return self._steps[key]
 
     def save(self, write) -> None:
@@ -266,11 +275,6 @@ class Trainer:
             ckpt.save_checkpoint(self.epoch_dir, epoch + 1, self.model, self.optimizer)
 
 
-SPATIAL_AXIS = ("training on the spatial mesh axis (make_train_step(spatial_axis=)) "
-                "is not ported: ROADMAP.md, Queue 1, item 9.3; the serving CLIs take "
-                "--mesh_axes spatial")
-
-
 def parse_args(argv=None) -> tuple[Config, str]:
     ap = argparse.ArgumentParser(description="train the PyTorch port")
     ap.add_argument("--image_dim", nargs=2, default=[180, 240], type=int)
@@ -310,37 +314,60 @@ def parse_args(argv=None) -> tuple[Config, str]:
     ap.add_argument("--distributed", action="store_true",
                     help="data-parallel over every local card, one process each")
     ap.add_argument("--mesh_shape", default="1",
-                    help="N > 1: data-parallel over N ranks (with --device cpu, N processes)")
-    ap.add_argument("--mesh_axes", default="data", help="the mesh's one axis: data")
+                    help="N > 1: N ranks on the one axis of --mesh_axes (with --device cpu, "
+                         "N processes); D,S: a data x spatial mesh")
+    ap.add_argument("--mesh_axes", default="data",
+                    help="data (the batch split), spatial (every frame's rows split) or "
+                         "data,spatial")
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = vars(ap.parse_args(argv))
     device = args.pop("device")
     args["image_dim"] = tuple(args["image_dim"])
-    if args["mesh_axes"] != "data":
-        ap.error(f"--mesh_axes {args['mesh_axes']}: the trainer's mesh has one axis, "
-                 f"'data'; {SPATIAL_AXIS}")
-    if not args["mesh_shape"].isdigit() or int(args["mesh_shape"]) < 1:
-        ap.error(f"--mesh_shape {args['mesh_shape']}: one positive rank count (the data "
-                 f"axis); {SPATIAL_AXIS}")
     if args["distributed"] and args["mesh_shape"] == "1" and device == "cpu" \
             and not data_mesh.under_torchrun():
         ap.error("--distributed --device cpu: 'every local card' means nothing on the CPU; "
                  "give the rank count with --mesh_shape N")
     # the reference trainer always shuffles, as the JAX package's train.py does
-    return Config(**args, shuffle=True), device
+    cfgs = Config(**args, shuffle=True)
+    try:
+        _, rows = mesh_dims(cfgs)
+        if rows > 1:
+            spatial.partition_for(cfgs, rows)
+    except ValueError as e:
+        ap.error(str(e))
+    return cfgs, device
+
+
+def mesh_dims(cfgs: Config) -> tuple[int, int]:
+    """(data, spatial): the sizes of the mesh's two axes the flags ask for;
+    ValueError for a mesh the trainer does not take."""
+    shape, axes = str(cfgs.mesh_shape), str(cfgs.mesh_axes)
+    sizes = shape.split(",")
+    if not all(n.isdigit() and int(n) >= 1 for n in sizes):
+        raise ValueError(f"--mesh_shape {shape}: positive rank counts")
+    names = axes.split(",")
+    if names not in (["data"], ["spatial"], ["data", "spatial"]):
+        raise ValueError(f"--mesh_axes {axes}: data, spatial, or data,spatial")
+    if len(sizes) != len(names):
+        raise ValueError(f"--mesh_shape {shape} --mesh_axes {axes}: one rank count "
+                         "for each axis")
+    dims = dict(zip(names, map(int, sizes)))
+    return dims.get("data", 1), dims.get("spatial", 1)
 
 
 def mesh_world(cfgs: Config) -> int | None:
-    """The data-parallel ranks the flags ask for (train.py:134-139 of the JAX
-    package): ``--mesh_shape N`` N, else ``--distributed`` every local card;
-    under ``torchrun`` the ranks it started, flags or not. None: one process
-    and no mesh."""
-    n = int(cfgs.mesh_shape)
+    """The ranks the flags ask for (train.py:134-139 of the JAX package):
+    ``--mesh_shape`` the product of its counts, else ``--distributed``
+    every local card on the data axis; under ``torchrun`` the ranks it
+    started, flags or not. None: one process and no mesh."""
+    data, rows = mesh_dims(cfgs)
+    n = data * rows
     if data_mesh.under_torchrun():
         world = int(os.environ["WORLD_SIZE"])
-        if n not in (1, world):
-            raise SystemExit(f"--mesh_shape {n} but torchrun started {world} ranks")
+        if n != world and (n != 1 or rows > 1):
+            raise SystemExit(f"--mesh_shape {cfgs.mesh_shape} but torchrun started {world} "
+                             "ranks")
         return world
     if n > 1:
         return n
@@ -348,13 +375,17 @@ def mesh_world(cfgs: Config) -> int | None:
 
 
 def train_rank(mesh: data_mesh.DataMesh, cfgs: Config) -> None:
-    """One rank of a data-parallel run: the kernels built once per host (by
-    its rank 0, the others waiting), then the ``Trainer`` on this rank's
-    card."""
+    """One rank of a data-parallel or row-sharded run: the kernels built
+    once per host (by its rank 0, the others waiting), then the ``Trainer``
+    on this rank's card, with the (data, spatial) ``Grid`` where the mesh
+    has a spatial axis."""
     if mesh.device.type == "cuda":
         if mesh.local_rank == 0:
             cuda_build.build_all(cuda_build.kernel_counters().values())
         mesh.barrier()
+    _, rows = mesh_dims(cfgs)
+    if rows > 1:
+        mesh = data_mesh.make_grid(mesh, mesh.world // rows, rows)
     Trainer(cfgs, mesh=mesh).run()
 
 

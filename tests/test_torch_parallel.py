@@ -551,16 +551,14 @@ def test_train_cli_mesh_matches_one_process(tmp_path, capfd):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--mesh_axes", "spatial"], "Queue 1, item 9"),
-    (["--mesh_shape", "2,2", "--mesh_axes", "data,spatial"], "Queue 1, item 9"),
-    (["--mesh_shape", "2,2"], "one positive rank count"),
+    (["--mesh_shape", "2,2"], "one rank count for each axis"),
     (["--distributed", "--device", "cpu"], "--mesh_shape N")])
 def test_train_cli_refuses_other_meshes(tmp_path, capsys, flags, message):
-    """A mesh axis other than 'data', a mesh of more than one axis, and
-    ``--distributed`` on the CPU without a rank count are refused with a
-    message (the spatial axis's names ROADMAP's item); the serving CLIs
-    take both mesh flags (a spatial axis, tests/test_torch_spatial.py) and
-    refuse the other TPU-only flags (``config.TPU_ONLY_FLAGS``,
+    """Two rank counts for the one data axis, and ``--distributed`` on the
+    CPU without a rank count are refused with a message (the spatial
+    meshes, tests/test_torch_spatial_train.py); the serving CLIs take both
+    mesh flags (a spatial axis, tests/test_torch_spatial.py) and refuse
+    the other TPU-only flags (``config.TPU_ONLY_FLAGS``,
     tests/test_torch_cli.py)."""
     with pytest.raises(SystemExit):
         train.parse_args(["--path_to_train_data", str(tmp_path), *flags])

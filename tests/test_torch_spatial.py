@@ -17,10 +17,15 @@ tensor into bands:
   x0.5, x2 and ``convex_upsample``;
 * (a) ``halo`` and ``gather_rows`` of uneven bands on 2 and 3 ranks;
 * (c) ``Reconstructor`` on 2 ranks (cista-eiflow window, cista-eraft window
-  and steps, cista-gtflow window with GT flows) at 64x96 and on 3 ranks
-  (cista-eiflow, uneven bands) at 80x96, 3 closed-loop steps with the gate
-  weights and ``flow_iters`` 1. 64 rows cannot take 3 ranks: a band needs
-  3 rows at 1/8 of the padded frame (``spatial.max_world``). Held against
+  and steps, cista-gtflow window with GT flows, cista-idnet window and
+  steps with ``next_flow`` chained) at 64x96 and on 3 ranks (cista-eiflow
+  and cista-idnet, uneven bands) at 80x96, 3 closed-loop steps with the
+  gate weights and ``flow_iters`` 1 (cista-idnet 2 deblur iterations, the
+  second from the gathered deblurred voxel). 64 rows cannot take 3 ranks:
+  a band needs 3 rows at 1/8 of the padded frame (``spatial.max_world``).
+  cista-eiflow ``flow_half`` on 2 ranks at 96x96 and on 3 at 144x96: its
+  flow net's frame is the half frame, whose padded rows at 1/8 (8 at 64
+  rows, 8 at 80) take one band only. Held against
   the port's one process (frames atol 1e-6, flows atol 1e-4, every step:
   tighter than the JAX test) and against the JAX package's unsharded
   ``Reconstructor`` at tests/test_sharded_inference.py:66-71's tolerances
@@ -59,7 +64,7 @@ from test_torch_cli import write_stream
 REPO = Path(__file__).resolve().parent.parent
 GATE = REPO / "gate"
 ANCHORS = {"cista-eiflow": GATE / "flagship_ft1_f16.npz", "cista-eraft": GATE / "eraft_ft1_f16.npz",
-           "cista-gtflow": GATE / "flagship_ft1_f16.npz"}
+           "cista-gtflow": GATE / "flagship_ft1_f16.npz", "cista-idnet": GATE / "idnet_ft2_f16.npz"}
 T = 3
 
 
@@ -120,6 +125,22 @@ def test_partition_rule():
     assert spatial.max_world((180, 240), 5) == 7 and spatial.max_world((64, 96), 1) == 2
     with pytest.raises(ValueError, match="at most 7 ranks"):
         spatial.partition((180, 240), 8, 5)
+
+
+def test_partition_rule_of_the_half_frame():
+    """``flow_half``: the cuts are multiples of 8 of the half frame padded
+    (90 rows of 180 padded by 6 at the top), so even rows of the frame;
+    rank 0's band carries the half frame's padding; the half-resolution
+    maps' bands are the half frame's unpadded bands."""
+    p = spatial.partition((180, 240), 3, 5, half=True)
+    assert (p.pad, p.cuts, p.down) == (6, (0, 40, 64, 96), 2)
+    assert p.sizes(8, padded=True) == [5, 3, 4]
+    assert p.sizes() == [68, 48, 64] and p.sizes(2) == [34, 24, 32]
+    assert [p.rows(r, 2) for r in range(3)] == [(0, 34, 90), (34, 58, 90), (58, 90, 90)]
+    assert spatial.max_world((180, 240), 5, half=True) == 3
+    assert spatial.max_world((64, 96), 1, half=True) == 1
+    with pytest.raises(ValueError, match="at most 3 ranks"):
+        spatial.partition((180, 240), 4, 5, half=True)
 
 
 CONVS = [  # (cin, cout, (kh, kw), stride, (ph, pw), padding mode)
@@ -260,8 +281,9 @@ def voxels(seed: int, h: int, w: int) -> np.ndarray:
     return v * (rng.random((T, 5, h, w)) < 0.2)
 
 
-def serve_job(mode: str, h: int, window: bool, gt: bool = False) -> dict:
-    cfg = Config(image_dim=(h, 96), model_mode=mode, depth=1, flow_iters=1,
+def serve_job(mode: str, h: int, window: bool, gt: bool = False, half: bool = False) -> dict:
+    cfg = Config(image_dim=(h, 96), model_mode=mode, depth=1,
+                 flow_iters=2 if mode == "cista-idnet" else 1, flow_half=half,
                  path_to_test_model=str(ANCHORS[mode]))
     gts = (np.random.default_rng(2).standard_normal((T, 2, h, 96)).astype(np.float32) * 2.0
            if gt else None)
@@ -273,8 +295,13 @@ CASES = {2: {"eiflow window": serve_job("cista-eiflow", 64, True),
              "eiflow followed": dict(serve_job("cista-eiflow", 64, True), follow=True),
              "eraft window": serve_job("cista-eraft", 64, True),
              "eraft steps": serve_job("cista-eraft", 64, False),
-             "gtflow window": serve_job("cista-gtflow", 64, True, gt=True)},
-         3: {"eiflow window": serve_job("cista-eiflow", 80, True)}}
+             "gtflow window": serve_job("cista-gtflow", 64, True, gt=True),
+             "idnet window": serve_job("cista-idnet", 64, True),
+             "idnet steps": serve_job("cista-idnet", 64, False),
+             "flow_half window": serve_job("cista-eiflow", 96, True, half=True)},
+         3: {"eiflow window": serve_job("cista-eiflow", 80, True),
+             "idnet window": serve_job("cista-idnet", 80, True),
+             "flow_half window": serve_job("cista-eiflow", 144, True, half=True)}}
 
 
 @pytest.fixture(scope="module")
@@ -324,7 +351,8 @@ def run_reconstructor(rec, job: dict):
 def jax_unsharded(job: dict, **mesh):
     cfg = job["cfg"]
     jr = JReconstructor(JConfig(image_dim=cfg.image_dim, model_mode=cfg.model_mode, depth=1,
-                                flow_iters=1, path_to_test_model=cfg.path_to_test_model, **mesh))
+                                flow_iters=cfg.flow_iters, flow_half=cfg.flow_half,
+                                path_to_test_model=cfg.path_to_test_model, **mesh))
     gts = job["gt_flows"]
     if job["window"]:
         return jr.step_window(list(job["voxels"]), None if gts is None else list(gts),
@@ -340,14 +368,14 @@ def hold_against_jax(got, ref):
             np.testing.assert_allclose(flows[t], ref[1][t], rtol=1e-3, atol=1e-4)
 
 
-@pytest.mark.parametrize("world,case", [(2, name) for name in CASES[2]] + [(3, "eiflow window")])
+@pytest.mark.parametrize("world,case", [(w, name) for w in CASES for name in CASES[w]])
 def test_row_sharded_reconstructor(pools, world, case):
     """N ranks of ``Reconstructor(mesh=...)`` against the port's one
     process and the JAX package's unsharded runner, the other ranks making
     the same calls (returning None) or following rank 0's (``follow``,
     after its ``reset``, until its ``close``); bytes went through every
-    kind of exchange but the norms' in the no-flow mode, and no rank built
-    an autograd graph."""
+    kind of exchange but the norms' in the modes without instance norms
+    (no flow net, IDNet), and no rank built an autograd graph."""
     job = CASES[world][case]
     ranks = pools[world][1][case]
     assert all(r["out"] is None for r in ranks[1:])
@@ -360,7 +388,8 @@ def test_row_sharded_reconstructor(pools, world, case):
     hold_against_jax((recs, flows), jax_unsharded(job))
     for r in ranks:
         assert r["sent"]["halo"] > 0 and r["sent"]["gather"] > 0
-        assert (r["sent"]["stats"] > 0) == (job["cfg"].model_mode != "cista-gtflow")
+        assert (r["sent"]["stats"] > 0) == (job["cfg"].model_mode
+                                            not in ("cista-gtflow", "cista-idnet"))
         assert not r["graph"]           # the ranks step without autograd, followers too
 
 
@@ -407,23 +436,16 @@ def test_noeval_on_two_ranks_writes_one_process_files(stream, tmp_path):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--model_mode", "cista-idnet", "--mesh_shape", "2", "--mesh_axes", "spatial"],
-     "Queue 1, item 9.2"),
-    (["--flow_half", "--model_mode", "cista-eiflow", "--mesh_shape", "2", "--mesh_axes",
-      "spatial"], "--flow_half does not serve on row bands"),
+    (["--flow_half", "--model_mode", "cista-eiflow", "--mesh_shape", "4", "--mesh_axes",
+      "spatial"], "at most 3 ranks for this frame"),
     (["--mesh_shape", "2"], "replicates the stream"),
     (["--mesh_shape", "2,2", "--mesh_axes", "data,spatial"], "replicates the stream"),
     (["--model_mode", "cista-eiflow", "--mesh_shape", "8", "--mesh_axes", "spatial"],
      "at most 7 ranks for this frame")])
 def test_serving_cli_refusals(capsys, flags, message):
-    """cista-idnet and ``--flow_half`` refuse at once, naming the ROADMAP
-    item that ports them; a data axis refuses (the JAX runner replicates
-    the stream there); too many ranks for the frame refuse, naming the most
-    it allows (180x240 at depth 5: 7)."""
+    """A data axis refuses (the JAX runner replicates the stream there);
+    too many ranks for the frame refuse, naming the most it allows (180x240
+    at depth 5: 7; under ``--flow_half`` 3, the half frame's)."""
     with pytest.raises(SystemExit):
         test_noeval.main(flags + ["--device", "cpu"])
     assert message in capsys.readouterr().err
-    cfg = Config(model_mode="cista-idnet")
-    mesh = spatial.RowMesh(world=2, rank=0, device=torch.device("cpu"), backend="gloo")
-    with pytest.raises(ValueError, match="item 9.2"):
-        Reconstructor(cfg, mesh=mesh)
