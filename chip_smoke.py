@@ -2,7 +2,8 @@
 """Drive the PyTorch/H100 port (cista_flow_torch) on one CUDA card.
 
     python3 chip_smoke.py [--kernels-only | --train-only | --pretrain-only | --dp-only |
-                           --spatial-only | --spatial-cards | --spatial-train-only]
+                           --spatial-only | --spatial-cards | --spatial-train-only |
+                           --mvsec-only | --chairs2-only]
 
 Phases (any failure raises and the exit code is non-zero):
  1. the card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -33,7 +34,11 @@ Phases (any failure raises and the exit code is non-zero):
     zero-flow gate true and false;
     K4 and K4s also at plane sizes that take each launch route (1 to 40000
     elements, a misaligned view, constant planes) and at the cista-eraft
-    window's 136 samples. ``--kernels-only`` stops here;
+    window's 136 samples. With them (``kernels_at_new_shapes``): K1, K2, K3,
+    K4 and K5 at the shapes MVSEC's 260x346 frame gives them at batch 1
+    (phase 15; the flow net's frame padded to 288x352), and K1, K4 and K5
+    at the chairs2 crop's (352x480, batch 4; phase 11 (e)), in both dtypes,
+    timed. ``--kernels-only`` stops here;
  4. the flagship path: ``Reconstructor.step_window`` in ``cista-eiflow``
     mode on the committed gate weights at 180x240, at (iters, depth) =
     (1, 1) and (6, 5), 16 steps of seeded voxels in f32 and bf16, with every
@@ -118,7 +123,16 @@ Phases (any failure raises and the exit code is non-zero):
     and timed, and K3a and K4s with gradients on the card in f32 and bf16;
     (d) a reduced ``sim_flow_quality`` (``FLOW_SMOKE``) whose trained EPE
     must be below the untrained one's, its checkpoint then loaded through
-    ``--path_to_flownet`` into a one-epoch ``sim_quality`` of cista-eiflow.
+    ``--path_to_flownet`` into a one-epoch ``sim_quality`` of cista-eiflow;
+    (e) FlyingChairs2 (``chairs2_pretraining``): a chairs2-layout folder of
+    12 simulated samples at 384x512 written by the port (RGB PNG pairs with
+    Paeth-filtered rows, ``.flo`` both ways, HDF5 events) into the ignored ``build/chairs2_data``,
+    then ``python -m cista_flow_torch.pretrain_flow --data_kind chairs2``'s
+    ``main`` in bf16 at the /32 crop 352x480, batch 4, one epoch (3 steps),
+    for DCEIFlow (``--is_bi``) and RAFT (``--opt raft``): finite losses,
+    launches per step, device ms per step and busy share, host ms per batch
+    by item (PNG decode, ``.flo``, HDF5, voxelization, augmentation), peak
+    memory, the checkpoint loaded strictly.
 12. data-parallel training (``data_parallel``): (a) two ranks on the one
     card over gloo (NCCL refuses two ranks on one card; a correctness
     check, not a speed figure): cista-eiflow (6,5) from the sim40 anchor at
@@ -139,9 +153,10 @@ Phases (any failure raises and the exit code is non-zero):
     offset (``K2b``) at the bands of 2 ranks at 180x240 and 480x640 against
     its plain version, timed at the code's band, and K3 on a band widened
     by its halo beside the bare band; (a) two ranks sharing the card over
-    gloo (a correctness check, not a speed figure), batch 1, 16 steps, at
+    gloo (a correctness check, not a speed figure), batch 1,
+    ``SPATIAL_STEPS`` = 8 steps (16 until the MVSEC phase was added), at
     180x240 and 480x640: cista-eiflow (6,5) and cista-eraft (12,5) from the
-    sim40 anchors (eraft's window, and 16 x ``step`` at 180x240),
+    sim40 anchors (eraft's window, and 8 x ``step`` at 180x240),
     cista-gtflow (depth 5, GT flows), cista-idnet (1,5) from its sim40
     anchor (``next_flow`` chained) and cista-eiflow ``flow_half`` (6,5) (the
     flow net on the bands of the half frame), f32 against one process on the card
@@ -162,17 +177,33 @@ Phases (any failure raises and the exit code is non-zero):
     phase 3's flow half, T = 10, 3 steps: device ms per step per rank,
     launches, peak memory per rank, MB each rank's exchanges send per
     step; (c) with two cards or more, (a) over NCCL, a card a rank.
+15. MVSEC (``mvsec_eval``): (a) ``data.sim.write_mvsec_hdf5`` writes
+    indoor_flying4 at DAVIS346's 260x346 into the ignored
+    ``build/mvsec_data`` through the port's HDF5 writer, and its reader
+    gives back a pair's events and a frame bit for bit; (b) ``python -m
+    cista_flow_torch.test_mvsec`` as a command under cista-eiflow (6,5)
+    (sim40 anchor), windows of 20000 events (1 or 2 a frame pair), f32 on
+    the card against ``--device cpu`` over 6 items (``all.csv`` within one
+    step of its 4-decimal rounding), then in this process over 10 items
+    with the launches of every window, both commands started at once; (c)
+    bf16: mean PSNR within 0.05 dB and SSIM within 0.002 of f32's, and
+    above the gate's floors; (d) windows/s and the
+    host split per window; (e) ``evaluate --harness_mode mvsec``: targets
+    saved, then held at 1%.
     ``--train-only`` runs the build, the kernel checks and phases 9 to 12;
     ``--dp-only`` the build and phase 12; ``--spatial-only`` the build,
     phase 13's kernel checks and phase 13, ``--spatial-cards`` the build
     and its (c); ``--spatial-train-only`` the build and phase 14;
-    ``--pretrain-only`` the build, (c) and phase 11. ``--grad-sources``
+    ``--pretrain-only`` the build, (c) and phase 11; ``--mvsec-only`` the
+    build, the checks at the new shapes and phase 15; ``--chairs2-only`` the
+    build and phase 11 (e). ``--grad-sources``
     (not part of the smoke) builds and then compares the card's f32
     pretraining gradients and the CPU's with an f64 evaluation under
     settings that each take one suspect out (``grad_sources``).
 Each phase prints its time. The last lines are the ``kernels`` JSON (K1,
 K2, K4 and K4s with a row for each timed shape under ``shapes``, K1, K2,
-K4 and K5 also at the pretraining shapes; ``K2b``, K2 on the row bands of
+K4 and K5 also at the pretraining shapes, K1-K5 at MVSEC's (``path``
+'mvsec') and K1, K4, K5 at the chairs2 crop's ('chairs2'); ``K2b``, K2 on the row bands of
 phases 13 and 14, its launches the ranks' K2 launches, the training
 loss's whole-frame warps among them), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -261,7 +292,8 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     modes = ("--kernels-only", "--train-only", "--pretrain-only", "--grad-sources",
-             "--dp-only", "--spatial-only", "--spatial-cards", "--spatial-train-only")
+             "--dp-only", "--spatial-only", "--spatial-cards", "--spatial-train-only",
+             "--mvsec-only", "--chairs2-only")
     if argv not in ([], *([m] for m in modes)):
         print(f"usage: chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -292,13 +324,18 @@ def main(argv) -> int:
     # ---- 3. kernels against their plain versions --------------------------
     # (the f32 plain versions are cuDNN convs: held in full f32 for the phase)
     checks = {}
-    alone = (["--dp-only"], ["--spatial-only"], ["--spatial-cards"], ["--spatial-train-only"])
+    alone = (["--dp-only"], ["--spatial-only"], ["--spatial-cards"], ["--spatial-train-only"],
+             ["--mvsec-only"], ["--chairs2-only"])
     if argv not in (["--pretrain-only"], *alone):
         with cudnn_fp32():
             checks = kernel_checks(torch)
     # phase 11 (c): the kernels at the pretraining shapes, K3a and K4s with gradients
     if argv not in alone:
         for key, rows in kernels_at_pretrain_shapes(torch).items():
+            checks.setdefault(key, {}).setdefault("shapes", []).extend(rows)
+    # the shapes of phases 15 (MVSEC) and 11 (e) (chairs2)
+    if argv in ([], ["--kernels-only"], ["--mvsec-only"]):
+        for key, rows in kernels_at_new_shapes(torch).items():
             checks.setdefault(key, {}).setdefault("shapes", []).extend(rows)
     # phase 13's kernels: K2 on row bands (K2b), K3 on a widened band (timed
     # here: after phase 12 the profiler's traces lose kernel records)
@@ -315,12 +352,14 @@ def main(argv) -> int:
     launches = {k: 0 for k in (*counters, "K2b")}
     phases = (flagship_path, eraft_path, variant_windows, f32_at_default_flags,
               gate_replay, serving_clis, idnet_path, long_chunks, training_path, train_modes,
-              flow_pretraining, data_parallel, spatial, spatial_training)
+              flow_pretraining, data_parallel, spatial, spatial_training, mvsec_eval)
     if argv:
-        phases = {"--train-only": phases[-6:-2], "--pretrain-only": (flow_pretraining,),
+        phases = {"--train-only": phases[8:12], "--pretrain-only": (flow_pretraining,),
                   "--dp-only": (data_parallel,), "--spatial-only": (spatial,),
                   "--spatial-cards": (spatial_across_cards,),
-                  "--spatial-train-only": (spatial_training,)}[argv[0]]
+                  "--spatial-train-only": (spatial_training,),
+                  "--mvsec-only": (mvsec_eval,),
+                  "--chairs2-only": (chairs2_pretraining,)}[argv[0]]
     for phase in phases:
         t_phase = time.perf_counter()
         for key, n in phase(torch, repo, counters).items():
@@ -329,8 +368,9 @@ def main(argv) -> int:
         print(f"{phase.__name__}: {now - t_phase:.1f} s, done at {now - t_start:.1f} s")
     idle = [k for k, n in launches.items() if n == 0]
     if argv:
-        path = ("K1", "K2", "K4", "K5") + (("K3",) if argv != ["--pretrain-only"] else ())
-        path += ("K4s", "K2b") if argv in alone[1:] else ()
+        pretraining = argv in (["--pretrain-only"], ["--chairs2-only"])
+        path = ("K1", "K2", "K4", "K5") + (() if pretraining else ("K3",))
+        path += ("K4s", "K2b") if argv in alone[1:4] else ()
         idle = [k for k in path if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")
@@ -2839,10 +2879,162 @@ def flow_quality_smoke(torch, repo: Path, counters: dict) -> dict:
     return {k: got[k] + got_q[k] for k in got}
 
 
+def timed_calls(seconds: dict, targets):
+    """A context in which each ``(owner, attribute, item)`` of ``targets``
+    is wrapped to add its calls' host seconds to ``seconds[item]``."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
+
+        def timer(fn, item):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    seconds[item] = seconds.get(item, 0.0) + time.perf_counter() - t0
+            return call
+        for (owner, attr, fn), (_, _, item) in zip(saved, targets):
+            setattr(owner, attr, timer(fn, item))
+        try:
+            yield seconds
+        finally:
+            for owner, attr, fn in saved:
+                setattr(owner, attr, fn)
+    return ctx()
+
+
+def chairs2_pretraining(torch, repo: Path, counters: dict) -> dict:
+    """(e) A FlyingChairs2-layout folder written by the port at
+    FlyingChairs2's 384x512 (``data.sim.write_chairs2_dataset``:
+    ``CHAIRS2_SAMPLES`` simulated RGB pairs, ``.flo`` both ways, HDF5
+    events) into the ignored ``build/chairs2_data``; then ``python -m
+    cista_flow_torch.pretrain_flow --data_kind chairs2`` (its ``main``, in
+    this process) in bf16 at the /32 crop 352x480, batch ``CHAIRS2_BATCH``,
+    one epoch (3 steps), for DCEIFlow (``--is_bi``) and RAFT (``--opt
+    raft``), 6 GRU iterations. For each: every loss finite, the launches of
+    every step (``pretrain_launches``), device ms per step (CUDA events;
+    the first step is the warm-up), the device-busy share of one more
+    traced step (``traced_step``), the host ms per batch by item (PNG
+    decode, ``.flo``, HDF5, voxelization, augmentation, the rest of
+    ``make_batches``), the peak memory, and the checkpoint loaded strictly
+    into a fresh net."""
+    import contextlib
+    import io as _io
+    import shutil
+
+    from cista_flow_torch import pretrain_flow as pf
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.data import flying_chairs2 as fc2
+    from cista_flow_torch.data import png
+    from cista_flow_torch.data.augmentors import EventFlowAugmentor
+    from cista_flow_torch.data.sim import write_chairs2_dataset
+
+    root = repo / "build" / "chairs2_data"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_chairs2_dataset(str(root), CHAIRS2_SAMPLES, *CHAIRS2_HW, seed=0)
+    size = sum(p.stat().st_size for p in root.rglob("*") if p.is_file()) / 2 ** 20
+    print(f"  chairs2: {CHAIRS2_SAMPLES} samples at {CHAIRS2_HW[0]}x{CHAIRS2_HW[1]} written in "
+          f"{time.perf_counter() - t0:.1f} s ({size:.1f} MiB, build/chairs2_data)")
+    # one frame's decode, its rows Paeth-filtered as written and with filter 0
+    paeth = root / "train" / "0000000-img_0.png"
+    plain = root / "frame_filter0.png"
+    png.write_png(str(plain), png.read_png(str(paeth))[:, :, ::-1])
+    decode = {}
+    for name, path in (("paeth", paeth), ("filter 0", plain)):
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            png.read_png(str(path))
+            times.append(1e3 * (time.perf_counter() - t1))
+        decode[name] = statistics.median(times)
+    plain.unlink()
+    print(f"  PNG decode of one {CHAIRS2_HW[0]}x{CHAIRS2_HW[1]} RGB frame (median of 3): "
+          + ", ".join(f"{k} rows {v:.1f} ms" for k, v in decode.items()))
+    total = {k: 0 for k in counters}
+    for arch, extra in (("dceiflow", ["--is_bi", "--is_reverse_events"]),
+                        ("raft", ["--opt", "raft"])):
+        models = root / "models"
+        steps, batches, host = [], [], {}
+        make_step, make_batches = pf.make_train_step, pf.make_batches
+
+        def counted_step(*args, **kwargs):
+            step = make_step(*args, **kwargs)
+
+            def run(model, batch):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out, got = counted(counters, lambda: step(model, batch))
+                stop.record()
+                torch.cuda.synchronize()
+                steps.append((start.elapsed_time(stop), got, float(out[0]), step, model, batch))
+                return out
+            return run
+
+        def timed_batches(*args, **kwargs):
+            it = make_batches(*args, **kwargs)
+            while True:
+                t1 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                batches.append(time.perf_counter() - t1)
+                yield batch
+
+        flags = ["--data_kind", "chairs2", "--flow_arch", arch, "--path_to_train_data", str(root),
+                 "--path_to_model", str(models), "--image_dim", *map(str, CHAIRS2_CROP),
+                 "--batch_size", str(CHAIRS2_BATCH), "--epochs", "1", "--dtype", "bfloat16",
+                 "--lr", str(PRETRAIN_LR), *extra]
+        targets = [(fc2, "read_gen", "png"), (fc2, "read_dense_flow", "flo"),
+                   (fc2, "read_event_h5", "hdf5"), (fc2, "events_to_voxel_triangular", "voxelize"),
+                   (EventFlowAugmentor, "__call__", "augment")]
+        torch.cuda.reset_peak_memory_stats()
+        pf.make_train_step, pf.make_batches = counted_step, timed_batches
+        try:
+            with timed_calls(host, targets), contextlib.redirect_stdout(_io.StringIO()):
+                t1 = time.perf_counter()
+                code = pf.main(flags)
+                secs = time.perf_counter() - t1
+        finally:
+            pf.make_train_step, pf.make_batches = make_step, make_batches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tag = (f"pretrain_flow --data_kind chairs2 {arch} bf16, {CHAIRS2_CROP[0]}x"
+               f"{CHAIRS2_CROP[1]}, batch {CHAIRS2_BATCH}")
+        if code != 0 or len(steps) != CHAIRS2_SAMPLES // CHAIRS2_BATCH:
+            raise AssertionError(f"{tag}: exit {code}, {len(steps)} steps")
+        want = pretrain_launches(arch, 6, is_bi=arch == "dceiflow")
+        for i, (ms, got, loss, *_) in enumerate(steps):
+            expect_launches(f"{tag} step {i + 1} ({ms:.1f} device ms, loss {loss:.4f})", got, want)
+            if not np.isfinite(loss):
+                raise AssertionError(f"{tag}: step {i + 1}'s loss {loss}")
+            for key in total:
+                total[key] += got[key]
+        ms = statistics.median(m for m, *_ in steps[1:])
+        step, model, batch = steps[-1][3:]
+        busy, split = traced_step(torch, repo, step, model, batch, ms)
+        per_batch = {k: 1e3 * v / len(batches) for k, v in host.items()}
+        per_batch["rest"] = 1e3 * sum(batches) / len(batches) - sum(per_batch.values())
+        saved = torch.load(models / f"{arch}_b5" / f"{arch}_1.pth.tar", weights_only=True)
+        pf.flow_net(arch, Config(), "cpu").load_state_dict(saved["model"], strict=True)
+        print(f"  {tag}: {secs:.1f} s for {len(steps)} steps; device ms per step (after the "
+              f"warm-up {steps[0][0]:.1f}) {ms:.1f}, busy {100 * busy:.1f}% (device ms: forward "
+              f"{split['forward']:.1f}, backward {split['backward']:.1f}, optimizer "
+              f"{split['optimizer']:.1f}); host ms per batch of {CHAIRS2_BATCH}: "
+              f"{1e3 * sum(batches) / len(batches):.1f} (" +
+              ", ".join(f"{k} {v:.1f}" for k, v in per_batch.items()) +
+              f"); peak memory {peak:.2f} GiB; the checkpoint loads strictly; on {nvidia_smi()}")
+    return total
+
+
 def flow_pretraining(torch, repo: Path, counters: dict) -> dict:
     """Phase 11: flow-net pretraining. See the module's docstring."""
     total = {k: 0 for k in counters}
-    for part in (pretrain_against_cpu, pretrain_bf16, flow_quality_smoke):
+    for part in (pretrain_against_cpu, pretrain_bf16, flow_quality_smoke, chairs2_pretraining):
         t0 = time.perf_counter()
         for key, n in part(torch, repo, counters).items():
             total[key] += n
@@ -3127,6 +3319,7 @@ SPATIAL_POINTS = (("cista-eiflow", 6, 5, "gate/flagship_sim40_f16.npz",
                   ("cista-eiflow", 6, 5, "gate/flagship_sim40_f16.npz",
                    (("float32", True), ("bfloat16", True)), True))
 SPATIAL_SIZES = ((H, W), SAMSUNG)
+SPATIAL_STEPS = 8        # phase 13's stream; 16 (STEPS) until phase 15 needed the time
 SPATIAL_K2 = {}          # the banded K2's row of the kernels line, once phase 13 ran
 
 
@@ -3147,14 +3340,14 @@ def rank_launches(mode: str, iters, steps: int, window: bool) -> dict:
 
 
 def spatial_inputs(torch, repo: Path, hw) -> tuple:
-    """(voxels, GT flows) of a 16-step stream at ``hw`` as .npy files the
-    ranks load, and the arrays."""
+    """(voxels, GT flows) of a ``SPATIAL_STEPS``-step stream at ``hw`` as
+    .npy files the ranks load, and the arrays."""
     root = repo / "build" / "spatial"
     root.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(13)
-    shape = (STEPS, 5, *hw)
+    shape = (SPATIAL_STEPS, 5, *hw)
     vox = (rng.standard_normal(shape) * 2.0 * (rng.random(shape) < 0.05)).astype(np.float32)
-    gts = (rng.standard_normal((STEPS, 2, *hw)) * 1.5).astype(np.float32)
+    gts = (rng.standard_normal((SPATIAL_STEPS, 2, *hw)) * 1.5).astype(np.float32)
     paths = (root / f"vox_{hw[0]}.npy", root / f"gt_{hw[0]}.npy")
     np.save(paths[0], vox)
     np.save(paths[1], gts)
@@ -3256,8 +3449,8 @@ def widened_k3(torch) -> None:
 def spatial_ranks(torch, repo: Path, device: str, backend, tag: str, timed: bool,
                   ref_device: str = "cuda:0") -> dict:
     """Phase 13 (a) or (c): 2 ranks (``parallel.check.spatial_rank``) on
-    ``device`` over ``backend`` serve ``SPATIAL_POINTS`` at both sizes, 16
-    steps, batch 1 (cista-idnet with ``next_flow`` chained over the steps,
+    ``device`` over ``backend`` serve ``SPATIAL_POINTS`` at both sizes,
+    ``SPATIAL_STEPS`` steps, batch 1 (cista-idnet with ``next_flow`` chained over the steps,
     cista-eiflow ``flow_half`` on the bands of the half frame), against one
     process on cuda:0 on the same inputs: f32
     frames and flows within phase 4's 1e-3 at every step, bf16 frames above
@@ -3291,13 +3484,14 @@ def spatial_ranks(torch, repo: Path, device: str, backend, tag: str, timed: bool
     t0 = time.perf_counter()
     ranks = check.run(check.spatial_rank, 2, device, jobs, str(repo / "build" / "spatial" / "out"),
                       backend=backend)
-    print(f"  {tag}: two ranks ran {len(jobs)} windows of {STEPS} steps in "
+    print(f"  {tag}: two ranks ran {len(jobs)} windows of {SPATIAL_STEPS} steps in "
           f"{time.perf_counter() - t0:.1f} s")
     refs, failures = {}, []
     for (hw, mode, iters, depth, dtype, window), job, r0, r1 in zip(names, jobs, *ranks):
         half = job["cfg"].flow_half
         name = (f"{tag}, {mode}{' flow_half' if half else ''} ({iters},{depth}) "
-                f"{hw[0]}x{hw[1]} {dtype} {'window' if window else f'{STEPS} x step'}")
+                f"{hw[0]}x{hw[1]} {dtype} "
+                f"{'window' if window else f'{SPATIAL_STEPS} x step'}")
         vox, gts = inputs[hw]
         gts = gts if mode == "cista-gtflow" else None
         key = (hw, mode, window, half)
@@ -3308,15 +3502,16 @@ def spatial_ranks(torch, repo: Path, device: str, backend, tag: str, timed: bool
             for k in counters:
                 total[k] += got[k]
         ref = refs[key]
-        if r1["out"] is not None or r0["out"][0].shape != (STEPS, *hw):
+        if r1["out"] is not None or r0["out"][0].shape != (SPATIAL_STEPS, *hw):
             failures.append(f"{name}: rank 0 alone returns the frame")
             continue
         for r, res in enumerate((r0, r1)):
-            want = rank_launches(mode, iters if iters else 0, STEPS, window)
+            want = rank_launches(mode, iters if iters else 0, SPATIAL_STEPS, window)
             expect_launches(f"{name}, rank {r}", res["launches"], want)
             for k, n in res["launches"].items():
                 total["K2b" if k == "K2" else k] += n
-        sent = {k: sum(res["sent"][k] for res in (r0, r1)) / 2 / STEPS / 1e6 for k in r0["sent"]}
+        sent = {k: sum(res["sent"][k] for res in (r0, r1)) / 2 / SPATIAL_STEPS / 1e6
+                for k in r0["sent"]}
         line = (f"  {name}: MB sent per rank and step " +
                 ", ".join(f"{k} {v:.3f}" for k, v in sent.items()))
         if dtype == "float32":
@@ -3528,6 +3723,327 @@ def spatial_training(torch, repo: Path, counters: dict) -> dict:
         parts.append(("(c) two ranks across cards over NCCL: not run, this machine has one card",
                       dict))
     return run_parts(parts, total)
+
+
+# phase 3's rows at the shapes of phases 15 and 11 (e), recorded from the
+# wrappers' inputs in one cista-eiflow (6,5) step at MVSEC's 260x346 (the flow
+# net's frame padded to 288x352) and in DCEIFlow's and RAFT's training
+# forwards at the chairs2 crop 352x480, batch CHAIRS2_BATCH (the encoders on
+# 2B)
+MVSEC_HW = (260, 346)                 # DAVIS346
+MVSEC_CORR = (1, 36, 44)
+MVSEC_WARP = ((1, 128, 130, 173), (1, 1, 260, 346))
+MVSEC_ISTA = (1, 64, 130, 173)        # x1; z has 128 channels; depth 5
+MVSEC_NORM = ((1, 64, 144, 176), (1, 96, 72, 88), (1, 128, 36, 44))
+MVSEC_CONV = (((1, 64, 144, 176), "zeros"), ((1, 128, 36, 44), "zeros"),
+              ((1, 64, 260, 346), "reflect"))
+CHAIRS2_HW = (384, 512)               # FlyingChairs2's frames
+CHAIRS2_CROP = (352, 480)             # a /32 crop: RAFT's padders agree only there
+CHAIRS2_BATCH = 4
+CHAIRS2_SAMPLES = 12                  # 3 steps an epoch
+CHAIRS2_CORR = (CHAIRS2_BATCH, 44, 60)
+CHAIRS2_NORM = ((8, 64, 176, 240), (8, 96, 88, 120), (8, 128, 44, 60))
+CHAIRS2_CONV = (((8, 64, 176, 240), "zeros"), ((8, 128, 44, 60), "zeros"))
+
+
+def kernels_at_new_shapes(torch) -> dict:
+    """With phase 3: K1, K2, K3, K4 and K5 at the shapes MVSEC's 260x346
+    frame gives them (batch 1; phase 15), and K1, K4 and K5 at the chairs2
+    crop's (phase 11 (e); phase 11 (c) holds RAFT at 384x512, batch 10),
+    in f32 and bf16 against their plain versions as phase 3 holds them, each
+    timed. Returns rows per kernel for the kernels line's ``shapes``, each
+    tagged with its phase."""
+    import torch.nn.functional as F
+    from cista_flow_torch.ops import cuda_aug, cuda_conv, cuda_ista2, cuda_norm
+    from cista_flow_torch.profile_kernels import grid_sample_call
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    rows = {k: [] for k in ("K1", "K2", "K3", "K4", "K5")}
+    print("kernels at the MVSEC (260x346) and chairs2 (352x480) shapes:")
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        es = torch.tensor([], dtype=dt).element_size()
+        with cudnn_fp32_scope(torch, "float32"):
+            k1 = k1_checks(torch, randn, dtype, shapes=(MVSEC_CORR, CHAIRS2_CORR))
+        for r, tag in zip(k1["shapes"], ("mvsec", "chairs2")):
+            rows["K1"].append(dict(r, dtype=dtype, path=tag))
+        gate = torch.tensor(True, device=dev)
+        for shape in MVSEC_WARP:
+            bsz, c, hh, ww = shape
+            img = randn(*shape).to(dt)
+            flow = randn(bsz, 2, hh, ww, scale=3.0)
+            ref = cuda_aug.warp_reflect_plain(img.float(), flow, -1.0)
+            err = compare(torch, f"K2 warp {shape}", dtype,
+                          cuda_aug.warp_reflect(img, flow, -1.0, gate), ref,
+                          warp_tol(img, ref, max(hh, ww), dtype))
+            ms = time_ms(torch, lambda: cuda_aug.warp_reflect(img, flow, -1.0, gate))
+            plain = time_ms(torch, lambda: cuda_aug.warp_reflect_plain(img, flow, -1.0, gate))
+            lib = time_ms(torch, grid_sample_call(img, flow, -1.0))
+            bms, by = bound(2 * img.numel() * es + flow.numel() * 4,
+                            bsz * hh * ww * (40 + 8 * c), "float32")
+            print(f"  K2 {shape} {dtype}: {ms:.4f} ms (plain {plain:.4f}, grid_sample "
+                  f"{lib:.4f}, bound {bms:.4f} by {by})")
+            rows["K2"].append(dict(shape=list(shape), dtype=dtype, path="mvsec", max_abs_err=err,
+                                   ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                                   library_ms=lib))
+        b, c, hh, ww = MVSEC_ISTA
+        x1, z = randn(b, c, hh, ww).to(dt), randn(b, 2 * c, hh, ww, scale=0.1).to(dt)
+        wts = (randn(c, 2 * c, 3, 3, scale=(18 * c) ** -0.5).to(dt), randn(c, scale=0.05).to(dt),
+               randn(2 * c, c, 3, 3, scale=(9 * c) ** -0.5).to(dt),
+               randn(2 * c, scale=0.05).to(dt),
+               (torch.rand(2 * c, generator=g, device=dev) * 0.01).to(dt))
+        gw, gb = randn(c, 2 * c, 3, 3, scale=(18 * c) ** -0.5).to(dt), randn(c, scale=0.05).to(dt)
+        with cudnn_fp32_scope(torch, "float32"):
+            ref = cuda_ista2.fused_ista_dg_plain(tuple(t.float() for t in wts), gw.float(),
+                                                 gb.float(), x1.float(), z.float(), 5)
+            err = compare(torch, f"K3 ista+Dg depth 5 {MVSEC_ISTA}", dtype,
+                          cuda_ista2.fused_ista_dg(wts, gw, gb, x1, z, 5), ref,
+                          f32_tol(ref) if dtype == "float32" else bf16_tol(ref, 8))
+            ms = time_ms(torch, lambda: cuda_ista2.fused_ista_dg(wts, gw, gb, x1, z, 5))
+            plain = time_ms(torch, lambda: cuda_ista2.fused_ista_dg_plain(wts, gw, gb, x1, z, 5))
+        nbytes = (x1.numel() * 2 + z.numel() * 2 + sum(t.numel() for t in wts) + gw.numel()
+                  + gb.numel()) * es
+        ops = 11 * 2 * 9 * (2 * c) * c * b * hh * ww
+        bms, by = bound(nbytes, ops, dtype)
+        print(f"  K3 depth 5 {MVSEC_ISTA} {dtype}: {ms:.4f} ms (plain {plain:.4f}, bound "
+              f"{bms:.4f} by {by}; {ops / ms * 1e-9:.1f} TFLOP/s)")
+        rows["K3"].append(dict(shape=list(MVSEC_ISTA), dtype=dtype, path="mvsec", max_abs_err=err,
+                               ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None))
+        for shapes, tag in ((MVSEC_NORM, "mvsec"), (CHAIRS2_NORM, "chairs2")):
+            for shape in shapes:
+                x = (randn(*shape) * 2.0 + 0.5).to(dt)
+                ref = cuda_norm.instance_norm_plain(x.float())
+                err = compare(torch, f"K4 norm {shape}", dtype, cuda_norm.instance_norm_fused(x),
+                              ref, 2e-5 if dtype == "float32" else bf16_tol(ref, 2))
+                ms = time_ms(torch, lambda: cuda_norm.instance_norm_fused(x))
+                plain = time_ms(torch, lambda: cuda_norm.instance_norm_plain(x))
+                lib = time_ms(torch, lambda: F.instance_norm(x))
+                bms, by = bound(2 * x.numel() * es, 6 * x.numel(), "float32")
+                print(f"  K4 {shape} {dtype}: {ms:.4f} ms (plain {plain:.4f}, F.instance_norm "
+                      f"{lib:.4f}, bound {bms:.4f}; rule "
+                      f"{cuda_norm.launch_rule(shape[2] * shape[3], es)})")
+                rows["K4"].append(dict(shape=list(shape), dtype=dtype, path=tag, max_abs_err=err,
+                                       ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                                       library_ms=lib))
+                del x, ref
+        for shapes, tag in ((MVSEC_CONV, "mvsec"), (CHAIRS2_CONV, "chairs2")):
+            for shape, mode in shapes:
+                c = shape[1]
+                x = randn(*shape).to(dt)
+                wk = randn(c, c, 3, 3, scale=(9 * c) ** -0.5).to(dt)
+                bk = randn(c, scale=0.1).to(dt)
+                relu = mode == "reflect"           # the upsamp conv's relu is fused
+                with cudnn_fp32_scope(torch, "float32"):
+                    ref = cuda_conv.conv3x3_plain(x.float(), wk.float(), bk.float(), mode, relu)
+                    err = compare(torch, f"K5 conv3x3 {shape} {mode}", dtype,
+                                  cuda_conv.conv3x3(x, wk, bk, mode, relu), ref,
+                                  f32_tol(ref) if dtype == "float32" else bf16_tol(ref, 2))
+                    ms = time_ms(torch, lambda: cuda_conv.conv3x3(x, wk, bk, mode, relu))
+                    lib = time_ms(torch, lambda: cuda_conv.conv3x3_plain(x, wk, bk, mode, relu))
+                ops = 2 * 9 * c * c * shape[0] * shape[2] * shape[3]
+                bms, by = bound((2 * x.numel() + wk.numel() + bk.numel()) * es, ops, dtype)
+                print(f"  K5 {shape} {mode} {dtype}: {ms:.4f} ms (F.conv2d {lib:.4f}, bound "
+                      f"{bms:.4f} by {by}; {ops / ms * 1e-9:.1f} TFLOP/s)")
+                rows["K5"].append(dict(shape=list(shape), dtype=dtype, path=tag, max_abs_err=err,
+                                       ms=ms, plain_ms=lib, bound_ms=bms, bound_by=by,
+                                       library_ms=lib))
+                del x, ref
+    return rows
+
+
+# phase 15: MVSEC. The simulated indoor_flying4 recording at DAVIS346's
+# 260x346 holds ~43k events a frame pair; windows of 20000 events give items
+# of 1 or 2 windows (item 0: 1) and keep each voxel near the anchor's
+# training regime (one voxel a frame interval): f32 on the CPU averages
+# 22.98 dB, SSIM 0.786 over 10 items' 7 scored frames; at 15000 events (2-3
+# windows) 21.77 dB, below the gate's floor
+MVSEC_SPLIT = "indoor_flying4"
+MVSEC_REAL = 12                      # simulated frames: items 0..9 are backed
+MVSEC_ITEMS = 10                     # items of the runs on the card
+MVSEC_CPU_ITEMS = 6                  # items of the card-against-CPU commands: 3 scored rows
+MVSEC_EVENTS = 20000
+MVSEC_BF16_DEV = {"psnr": 0.05, "ssim": 0.002}   # |bf16 - f32| of the mean, each bf16 run
+
+
+def read_all_csv(path: Path) -> list:
+    import csv
+    with open(path, newline="") as f:
+        return list(csv.reader(f, delimiter="\t"))
+
+
+def mvsec_eval(torch, repo: Path, counters: dict) -> dict:
+    """Phase 15: MVSEC. (a) ``data.sim.write_mvsec_hdf5`` writes
+    indoor_flying4 at 260x346 (``MVSEC_REAL`` simulated frames) into the
+    ignored ``build/mvsec_data`` through the port's HDF5 writer; the port's
+    reader gives back a frame pair's events and a frame as written, bit for
+    bit. (b) ``python -m cista_flow_torch.test_mvsec`` as a command under
+    cista-eiflow (6,5) from the sim40 anchor, ``--image_dim 260 346
+    --num_events 20000``, f32 on the card against the same command with
+    ``--device cpu``, both started at once, over ``MVSEC_CPU_ITEMS`` items:
+    ``all.csv`` equal in its names and frame counts, every metric within
+    1e-4 (one step of its 4-decimal rounding); then ``test_mvsec.evaluate`` in this process over
+    ``MVSEC_ITEMS`` items in f32 with the launches of every window
+    (``window_launches``); (c) the same in bf16, twice: each run's mean
+    PSNR and SSIM within ``MVSEC_BF16_DEV`` of f32's and above the gate's
+    floors; (d) windows/s and the host split per window (HDF5 reads and the
+    GT flow, timed by ``timed_calls``, the rest of an item ('chunking'),
+    voxelization, the device call, metrics, FWL, writers) of the second bf16
+    run; (e) ``python -m cista_flow_torch.evaluate
+    --harness_mode mvsec --save_targets`` (its ``main``), then the same run
+    held to those targets at 1%, both exit 0."""
+    import contextlib
+    import io as _io
+    import shutil
+    import subprocess
+
+    from cista_flow_torch import evaluate, test_mvsec
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.data import hdf5, mvsec
+    from cista_flow_torch.data.mvsec import VALID_TIME_INDEX
+    from cista_flow_torch.data.sim import simulate_sequence, write_mvsec_hdf5
+    from cista_flow_torch.timing import HostSplit
+
+    root = repo / "build" / "mvsec_data"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    data_path, _ = write_mvsec_hdf5(str(root / MVSEC_SPLIT), MVSEC_SPLIT, n_real=MVSEC_REAL,
+                                    h=MVSEC_HW[0], w=MVSEC_HW[1], seed=0)
+    write_s = time.perf_counter() - t0
+    # the arrays as the writer makes them: the simulated events after the
+    # split's first valid frame's time, 8 pad events, each frame's first event
+    sq = simulate_sequence(0, MVSEC_REAL, *MVSEC_HW)
+    shift, k = VALID_TIME_INDEX[MVSEC_SPLIT][0], 4
+    ts = np.arange(VALID_TIME_INDEX[MVSEC_SPLIT][1] + 2, dtype=np.float64) / 25.0
+    rows = [np.stack([x.astype(np.float64), y.astype(np.float64), t + ts[shift],
+                      (2 * p - 1).astype(np.float64)], axis=1) for t, x, y, p in sq["events"]]
+    t_last = ts[shift + MVSEC_REAL - 1] + 1e-4
+    written = np.concatenate(rows + [np.array([[0.0, 0.0, t_last + 1e-6 * i, 1.0]
+                                               for i in range(8)])])
+    want_inds = np.searchsorted(written[:, 2], ts, side="left")
+    with hdf5.File(data_path) as f:
+        inds = f["davis/left/image_raw_event_inds"]
+        t1 = time.perf_counter()
+        i1, i2 = int(inds[shift + k]), int(inds[shift + k + 1])
+        events = f["davis/left/events"][i1:i2]
+        frame = f["davis/left/image_raw"][shift + k]
+        read_ms = 1e3 * (time.perf_counter() - t1)
+        if (inds[()].tobytes() != want_inds.astype(np.int64).tobytes()
+                or events.tobytes() != written[i1:i2].tobytes() or frame.tobytes()
+                != np.round(sq["frames"][k] * 255).astype(np.uint8).tobytes()
+                or f["davis/left/image_raw"][0].any()):
+            raise AssertionError("MVSEC: the HDF5 reader gives back other arrays than written")
+        n_events = len(f["davis/left/events"])
+    size = Path(data_path).stat().st_size / 2 ** 20
+    print(f"  (a) {MVSEC_SPLIT} at {MVSEC_HW[0]}x{MVSEC_HW[1]}: {n_events} events, written in "
+          f"{write_s:.1f} s ({size:.1f} MiB, contiguous); pair {k}'s {len(events)} events and "
+          f"frame read back bit for bit in {read_ms:.2f} ms")
+
+    anchor = repo / "gate" / "flagship_sim40_f16.npz"
+    flags = ["--model_mode", "cista-eiflow", "-d", "5", "--flow_iters", "6", "--image_dim",
+             *map(str, MVSEC_HW), "--path_to_test_data", str(root), "--path_to_test_model",
+             str(anchor), "--num_events", str(MVSEC_EVENTS)]
+    csvs, procs = {}, {}
+    t1 = time.perf_counter()
+    for device in ("cuda", "cpu"):                  # both commands at once
+        procs[device] = subprocess.Popen(
+            [sys.executable, "-m", "cista_flow_torch.test_mvsec", *flags, "--test_img_num",
+             str(MVSEC_CPU_ITEMS), "--is_write_flow", "-o", str(root / f"out_{device}"),
+             "--device", device], cwd=repo, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True)
+    try:
+        for device, proc in procs.items():
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"test_mvsec --device {device}: exit {proc.returncode}\n"
+                                     f"{err[-3000:]}")
+            csvs[device] = read_all_csv(root / f"out_{device}" / anchor.stem / "all.csv")
+            print(f"  (b) python -m cista_flow_torch.test_mvsec --device {device}: done at "
+                  f"{time.perf_counter() - t1:.1f} s (both started together); all.csv "
+                  f"{csvs[device]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    a, b = csvs["cuda"], csvs["cpu"]
+    worst = max(abs(float(u) - float(v)) for ra, rb in zip(a[1:], b[1:])
+                for u, v in zip(ra[1:-1], rb[1:-1]))
+    same_shape = [[r[0], r[-1]] for r in a] == [[r[0], r[-1]] for r in b] and len(a) == 3
+    print(f"      f32 card against the CPU: all.csv's largest difference {worst:.4f} "
+          f"(tol 1e-4, one step of its rounding); rows and frame counts "
+          f"{'equal' if same_shape else 'DIFFER'}")
+    if not same_shape or worst > 1e-4 + 1e-9 or int(a[-1][-1]) < 3:
+        raise AssertionError(f"MVSEC all.csv: card {a} against cpu {b}")
+
+    total = {k: 0 for k in counters}
+    runs = {}
+    targets = [(hdf5.Dataset, "__getitem__", "hdf5"),
+               (mvsec, "generate_corresponding_gt_flow", "gt_flow")]
+    for run, dtype in (("f32", "float32"), ("bf16", "bfloat16"), ("bf16 again", "bfloat16")):
+        cfg = Config(image_dim=MVSEC_HW, model_mode="cista-eiflow", depth=5, flow_iters=6,
+                     dtype=dtype, path_to_test_model=str(anchor), path_to_test_data=str(root),
+                     num_events=MVSEC_EVENTS, test_img_num=MVSEC_ITEMS,
+                     output_folder=str(root / "out" / run.replace(" ", "_")))
+        split, reads = HostSplit(), {}
+        t1 = time.perf_counter()
+        with recorded_windows() as lengths, contextlib.redirect_stdout(_io.StringIO()), \
+                timed_calls(reads, targets):
+            (rows, keys, mean), got = counted(
+                counters, lambda: test_mvsec.evaluate(cfg, device="cuda", split=split))
+        secs = time.perf_counter() - t1
+        # the item's HDF5 reads and GT flow inside 'chunking', split out
+        split.seconds["chunking"] -= sum(reads.values())
+        split.seconds = {**reads, **split.seconds}
+        want = {}
+        for n in lengths:
+            for key, v in window_launches("cista-eiflow", 6, n).items():
+                want[key] = want.get(key, 0) + v
+        expect_launches(f"(b) test_mvsec {run} ({secs:.1f} s): {len(lengths)} calls of "
+                        f"{lengths} windows", got, want)
+        for key in total:
+            total[key] += got[key]
+        runs[run] = (mean, split, rows)
+    f32, bf = runs["f32"][0], runs["bf16"][0]
+    fl = GATE_FLOORS["cista-eiflow"]
+    dev = {k: bf[k] - v for k, v in f32.items()}
+    above = bf["psnr"] > fl["psnr"] and bf["ssim"] > fl["ssim"]
+    # bf16 against f32 on the same windows: the floors alone leave a fault
+    # of a few tenths of a dB unseen
+    near = all(abs(runs[r][0][k] - f32[k]) <= tol for r in ("bf16", "bf16 again")
+               for k, tol in MVSEC_BF16_DEV.items())
+    print(f"  (c) f32 mean over {runs['f32'][2][-1][-1]} frames: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in f32.items())
+          + "; bf16 - f32: " + ", ".join(f"{k} {v:+.4f}" for k, v in dev.items())
+          + f" (tol {MVSEC_BF16_DEV}: {'within' if near else 'OUTSIDE'}); bf16 psnr "
+          f"{bf['psnr']:.4f}, ssim {bf['ssim']:.4f} against the floors {fl}: "
+          + ("above" if above else "BELOW"))
+    if not (above and near):
+        raise AssertionError(f"MVSEC bf16: {bf} (again {runs['bf16 again'][0]}) against f32 "
+                             f"{f32}, tolerances {MVSEC_BF16_DEV}, floors {fl}")
+    split = runs["bf16 again"][1]
+    ms = split.per_window_ms()
+    print(f"  (d) bf16: {split.windows / sum(split.seconds.values()):.1f} windows/s over the "
+          f"loop ({split.windows} windows); host ms per window: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f"; largest besides the device call: "
+          f"{max((k for k in ms if k != 'device'), key=ms.get)}; on {nvidia_smi()}")
+
+    targets = root / "targets_mvsec.json"
+    harness = ["--harness_mode", "mvsec", "--targets", str(targets), *flags,
+               "--test_img_num", str(MVSEC_CPU_ITEMS), "-o", str(root / "out_harness")]
+    with contextlib.redirect_stdout(_io.StringIO()) as log:
+        codes = [evaluate.main(harness + ["--save_targets"]),
+                 evaluate.main(harness + ["--harness_tolerance", "0.01"])]
+    print(f"  (e) evaluate --harness_mode mvsec: --save_targets exit {codes[0]}, the 1% hold "
+          f"exit {codes[1]} ({log.getvalue().strip().splitlines()[-1]})")
+    if codes != [0, 0]:
+        raise AssertionError(f"evaluate --harness_mode mvsec: exits {codes}")
+    return total
 
 
 def cudnn_fp32_scope(torch, dtype: str):

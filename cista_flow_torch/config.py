@@ -88,6 +88,7 @@ class Config:
     k_shift: int = -1
     n_event_skip: int = 0
     dvs: str | None = None
+    mvsec_sensor_size: tuple | None = None   # MVSEC_NE's sensor (H, W); None: DAVIS346's (260, 346)
 
     # output
     output_folder: str = "test_images"

@@ -11,6 +11,16 @@ threshold crossings (the ESIM contrast model, Rebecq et al., CoRL'18) and
 the flow comes from the analytic motion, so frames, events and flow agree. The same seed gives the same arrays as
 the JAX package's. Frames are written with the port's own PNG codec.
 
+``write_mvsec_hdf5`` writes a simulated recording in MVSEC's HDF5 layout
+through the port's own HDF5 writer (``data/hdf5.py``), the same arrays as
+the JAX package's function (cista_flow_tpu/data/sim.py:284-355), every
+dataset contiguous where h5py was asked for gzip chunks of ``image_raw``.
+``write_chairs2_dataset`` writes a FlyingChairs2-layout folder of
+simulated RGB pairs, flows and HDF5 events (the port's own; the JAX tests
+build theirs with OpenCV and h5py). ``python -m cista_flow_torch.data.sim
+--out DIR [--mode eval|train]`` is the JAX module's writer CLI
+(sim.py:426-458), with the same flags.
+
 Eval layout (ref: data_readers/video_readers.py:343-457):
   - frames ``frame_%04d.png`` (uint8 grayscale), ``timestamps.txt`` lines
     ``<name> <t_seconds>``
@@ -21,10 +31,13 @@ Eval layout (ref: data_readers/video_readers.py:343-457):
 """
 from __future__ import annotations
 
+import argparse
 import os
+import sys
 
 import numpy as np
 
+from . import hdf5
 from .png import write_png
 
 
@@ -276,6 +289,99 @@ def ensure_eval_data(workdir: str, h: int, w: int, eval_frames: int,
     return eval_dir
 
 
+def write_mvsec_hdf5(outdir: str, split: str = "indoor_flying4", n_real: int = 16,
+                     h: int = 260, w: int = 346, seed: int = 0, fps: float = 25.0,
+                     **sim_kw) -> tuple:
+    """An MVSEC-layout pair of HDF5 files from the simulator, the rehearsal
+    recording of the MVSEC eval path: ``<outdir>/<split>_data.hdf5``
+    (``davis/left/{events, image_raw, image_raw_ts, image_raw_event_inds}``,
+    events as [x, y, t, p] rows with p in {-1, +1}) and ``<split>_gt.hdf5``
+    (``davis/left/{flow_dist, flow_dist_ts}``). Only the ``n_real`` frames
+    from the split's first valid raw index on carry simulated content (every
+    other frame is zeros and is never read), so items 0 .. n_real - 3 of the
+    split are backed by consistent events, frames and GT flow. Eight pad
+    events after the last real frame keep every pair's end index inside the
+    events (the reader asserts it); a zero GT map before the first real
+    frame and two after the last keep the flow search inside the maps.
+    Returns (data path, GT path)."""
+    from .mvsec import VALID_TIME_INDEX
+
+    shift, maxi = VALID_TIME_INDEX[split]
+    n_total = maxi + 2
+    sim = simulate_sequence(seed, n_real, h, w, fps=fps, **sim_kw)
+
+    ts_global = np.arange(n_total, dtype=np.float64) / fps
+    images = np.zeros((n_total, h, w), np.uint8)
+    for k, frame in enumerate(sim["frames"]):
+        images[shift + k] = np.round(frame * 255).astype(np.uint8)
+
+    off = ts_global[shift]
+    ev_rows = [np.stack([x.astype(np.float64), y.astype(np.float64), t + off,
+                         (2 * p - 1).astype(np.float64)], axis=1)
+               for (t, x, y, p) in sim["events"]]
+    t_last = ts_global[shift + n_real - 1] + 1e-4
+    pad = np.array([[0.0, 0.0, t_last + 1e-6 * i, 1.0] for i in range(8)])
+    events = np.concatenate(ev_rows + [pad], axis=0)
+    inds = np.searchsorted(events[:, 2], ts_global, side="left")
+
+    zero = np.zeros((1, 2, h, w), np.float32)
+    flow = np.concatenate([zero, sim["flow01"].astype(np.float32), zero, zero], axis=0)
+    flow_ts = np.concatenate([
+        [ts_global[shift] - 1.0 / fps],
+        ts_global[shift:shift + n_real - 1],
+        [ts_global[shift + n_real - 1], ts_global[shift + n_real]]])
+
+    os.makedirs(outdir, exist_ok=True)
+    data_path = os.path.join(outdir, f"{split}_data.hdf5")
+    gt_path = os.path.join(outdir, f"{split}_gt.hdf5")
+    hdf5.write_h5(data_path, {"davis/left/events": events, "davis/left/image_raw": images,
+                              "davis/left/image_raw_ts": ts_global,
+                              "davis/left/image_raw_event_inds": inds.astype(np.int64)})
+    hdf5.write_h5(gt_path, {"davis/left/flow_dist": flow,
+                            "davis/left/flow_dist_ts": flow_ts.astype(np.float64)})
+    return data_path, gt_path
+
+
+def chairs2_rgb(frame: np.ndarray) -> np.ndarray:
+    """A simulated grey frame in [0, 1] as an RGB uint8 frame whose hue
+    varies with the intensity (R = f, G = f^0.7, B = 1 - 0.8 f)."""
+    rgb = np.stack([frame, frame ** 0.7, 1.0 - 0.8 * frame], axis=-1)
+    return np.round(np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+
+
+def write_chairs2_dataset(outroot: str, n_samples: int, h: int = 384, w: int = 512,
+                          seed: int = 0, split: str = "train", **sim_kw) -> list:
+    """A FlyingChairs2-layout folder from the simulator: per sample the
+    pair of a 2-frame simulated sequence (seed ``seed + i``) as RGB PNGs
+    (``chairs2_rgb``) ``<split>/<id>-img_0.png``, ``-img_1.png`` with every
+    row Paeth-filtered (an adaptive encoder may pick Paeth for any row;
+    it is the slowest filter to decode), its flows
+    both ways as ``-flow_01.flo``/``-flow_10.flo``, and its events as
+    ``events_<split>/<id>-event.hdf5`` (x, y, t in seconds, p in {-1, +1})
+    through the port's HDF5 writer; ids ``%07d``. Returns the ids."""
+    from .file_io import write_flo
+
+    img_dir = os.path.join(outroot, split)
+    ev_dir = os.path.join(outroot, "events_" + split)
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(ev_dir, exist_ok=True)
+    ids = []
+    for i in range(n_samples):
+        sq = simulate_sequence(seed + i, 2, h, w, **sim_kw)
+        sid = f"{i:07d}"
+        for k in range(2):                               # write_png takes BGR
+            write_png(os.path.join(img_dir, f"{sid}-img_{k}.png"),
+                      chairs2_rgb(sq["frames"][k])[:, :, ::-1], row_filter=4)
+        write_flo(os.path.join(img_dir, f"{sid}-flow_01.flo"), sq["flow01"][0].transpose(1, 2, 0))
+        write_flo(os.path.join(img_dir, f"{sid}-flow_10.flo"), sq["flow10"][0].transpose(1, 2, 0))
+        t, x, y, p = sq["events"][0]
+        hdf5.write_h5(os.path.join(ev_dir, f"{sid}-event.hdf5"),
+                      {"x": x.astype(np.int64), "y": y.astype(np.int64), "t": t,
+                       "p": (2 * p - 1).astype(np.int64)})
+        ids.append(sid)
+    return ids
+
+
 class SimFlowPairs:
     """Independent (events, I0, I1, flow01) samples of the simulated
     training layout, the flow-pretraining set of ``pretrain_flow --data_kind
@@ -325,3 +431,42 @@ class SimFlowPairs:
                         if k in item:
                             item[k][comp] = -item[k][comp]
         return item
+
+
+def main(argv=None) -> int:
+    """Write simulated eval sequences (``--mode eval``: ``--n_sequences``
+    folders ``sim_NN`` from seeds ``seed + NN``) or a training set
+    (``--mode train``: ``--n_videos`` videos and their index)."""
+    ap = argparse.ArgumentParser(description="ESIM-style simulated event data")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--mode", choices=("eval", "train"), default="eval")
+    ap.add_argument("--image_dim", nargs=2, type=int, default=(180, 240))
+    ap.add_argument("--n_frames", type=int, default=30)
+    ap.add_argument("--n_videos", type=int, default=8, help="training mode: number of sequences")
+    ap.add_argument("--n_sequences", type=int, default=1,
+                    help="eval mode: number of sequence folders")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fps", type=float, default=25.0)
+    ap.add_argument("--substeps", type=int, default=10)
+    ap.add_argument("--contrast", type=float, default=0.18)
+    ap.add_argument("--speed", type=float, default=60.0, help="texture translation, px/s")
+    ap.add_argument("--omega", type=float, default=0.25, help="rotation rad/s")
+    args = ap.parse_args(argv)
+
+    h, w = args.image_dim
+    kw = dict(fps=args.fps, substeps=args.substeps, c_pos=args.contrast, c_neg=args.contrast,
+              speed=args.speed, omega=args.omega)
+    if args.mode == "train":
+        path = write_train_dataset(args.out, args.n_videos, args.n_frames, h, w, seed=args.seed,
+                                   **kw)
+        print(f"wrote {path}")
+    else:
+        for s in range(args.n_sequences):
+            sd = os.path.join(args.out, f"sim_{s:02d}")
+            write_eval_sequence(sd, simulate_sequence(args.seed + s, args.n_frames, h, w, **kw))
+            print(f"wrote {sd}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

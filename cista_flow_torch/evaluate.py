@@ -4,14 +4,15 @@ to targets.
     python -m cista_flow_torch.evaluate --model_mode cista-eiflow \\
         --path_to_test_data DATA/eval --test_data_mode upsampled \\
         --path_to_test_model gate/flagship_ft1_f16.npz --depth 1 --flow_iters 1 \\
-        [--dtype bfloat16] [--device cpu] [--harness_mode with_flow|wo_flow] \\
+        [--dtype bfloat16] [--device cpu] [--harness_mode with_flow|wo_flow|mvsec] \\
         [--targets gate/targets_sim_flagship_ft1.json --harness_tolerance 0.002] \\
         [--save_targets]
 
 Counterpart of the JAX package's ``eval_harness.py``: the flags of the eval
 CLIs (``config.add_args``; ``--model_mode`` defaults to cista-eiflow here),
 and ``--harness_mode`` picks ``test_with_flow.evaluate_sequences`` (the
-default) or ``test_wo_flow.evaluate_sequences``. With ``--targets`` the
+default), ``test_wo_flow.evaluate_sequences`` or ``test_mvsec.evaluate``
+(MVSEC's HDF5 recordings; ``eval_harness.py:72-87``). With ``--targets`` the
 mean row is held to the targets at ``--harness_tolerance`` (symmetric
 relative deviation, denominators floored at 1e-3); the exit code is 1 if
 any metric is off. With ``--save_targets`` the mean row is written to
@@ -59,7 +60,7 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="quality harness of the PyTorch port")
     config.add_args(ap)
     ap.set_defaults(model_mode="cista-eiflow")
-    ap.add_argument("--harness_mode", default="with_flow", choices=["with_flow", "wo_flow"])
+    ap.add_argument("--harness_mode", default="with_flow", choices=["with_flow", "wo_flow", "mvsec"])
     ap.add_argument("--targets", default=None, help="targets JSON ({metric: value})")
     ap.add_argument("--save_targets", action="store_true",
                     help="write the mean row to --targets and exit 0")
@@ -77,9 +78,12 @@ def main(argv=None) -> int:
     cfg = config.from_args(args)
     if args.harness_mode == "with_flow":
         rows, keys, _ = evaluate_sequences(cfg, device=args.device)
-    else:
+    elif args.harness_mode == "wo_flow":
         from .test_wo_flow import evaluate_sequences as wo_flow
         rows, keys, _ = wo_flow(cfg, device=args.device)
+    else:
+        from .test_mvsec import evaluate as mvsec
+        rows, keys, _ = mvsec(cfg, device=args.device)
     measured = mean_metrics(rows, keys)
     if args.save_targets:
         with open(args.targets, "w") as f:

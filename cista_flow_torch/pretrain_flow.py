@@ -1,9 +1,10 @@
-"""Flow-net pretraining on one card: DCEIFlow or E-RAFT on simulated pairs.
+"""Flow-net pretraining on one card: DCEIFlow, E-RAFT or RAFT, on
+FlyingChairs2 or on simulated pairs.
 
-    python -m cista_flow_torch.pretrain_flow --data_kind sim \
-        --path_to_train_data DIR [--flow_arch dceiflow|eraft] [--opt adam|raft]
-        [--epochs N] [--batch_size B] [--lr LR] [--dtype bfloat16] [--is_bi
-        --is_reverse_events] [--device cpu]
+    python -m cista_flow_torch.pretrain_flow [--data_kind chairs2|sim] \
+        --path_to_train_data DIR [--flow_arch dceiflow|raft|eraft] [--opt adam|raft]
+        [--image_dim H W] [--epochs N] [--batch_size B] [--lr LR] [--dtype bfloat16]
+        [--is_bi --is_reverse_events] [--device cpu]
 
 Counterpart of the JAX package's root ``pretrain_flow.py`` (the first stage
 of the reference's recipe, the DCEIFlow "GT I" stage): the gamma-weighted
@@ -18,11 +19,18 @@ flow net is saved as ``{path_to_model}/{arch}_b{num_bins}/{arch}_{epoch}.pth.tar
 ``{'epoch', 'model'}`` in the reference's flow-net layout, which the
 composite trainers of both packages load through ``--path_to_flownet``.
 
-Not ported: ``--data_kind chairs2`` (the JAX default) and with it RAFT from
-the command line. The FlyingChairs2 set is not in the repo, its events are
-HDF5 files the port has no reader for, and RAFT trains on RGB pairs, which
-the simulator (grey frames) cannot give. Both refuse at once. The RAFT model
-and its train step are here (``models/raft.py``, ``make_train_step``).
+``--data_kind chairs2`` (the default, as in the JAX script) trains on the
+FlyingChairs2 folder ``--path_to_train_data`` (``data.flying_chairs2``:
+its train split, RGB pairs, HDF5 events through the port's own reader),
+augmented as the JAX script augments it (crops of ``--image_dim``, flips,
+the colour jitter; the augmentor's draws from ``--seed``, where the JAX
+script leaves them unseeded). DCEIFlow reads the first channel of the
+frames, RAFT all three in [0, 255]; RAFT needs a crop divisible by 32
+(``make_train_step`` refuses others, as the JAX script asserts). ``--data_kind
+sim`` trains on ``SimFlowPairs`` of the simulated training layout. E-RAFT
+needs ``--data_kind sim`` (chairs2 has no event stream for its voxel pair),
+as in the JAX script; RAFT refuses ``--data_kind sim``, whose frames are
+grey.
 """
 from __future__ import annotations
 
@@ -62,15 +70,19 @@ def flow_net(arch: str, cfg, device=None, seed: int | None = None) -> torch.nn.M
 
 
 def make_batches(ds, batch_size: int, shuffle: bool, rng: np.random.Generator):
-    """Batches of ``batch_size`` items as dicts of NCHW float32 arrays, in
-    the order of ``rng.shuffle`` of the indices; the last partial batch is
-    dropped (the JAX function's batches, for the same seed)."""
+    """Batches of ``batch_size`` items as dicts of C-contiguous NCHW float32
+    arrays, in the order of ``rng.shuffle`` of the indices; the last
+    partial batch is dropped (the JAX function's batches, for the same
+    seed). An item may hold a transposed view (FlyingChairs2's CHW frames
+    and flows), whose layout ``np.stack`` keeps: the kernels take dense
+    tensors."""
     order = np.arange(len(ds))
     if shuffle:
         rng.shuffle(order)
     for i in range(0, len(order) - batch_size + 1, batch_size):
         items = [ds[j] for j in order[i:i + batch_size]]
-        yield {k: np.stack([np.asarray(it[k], np.float32) for it in items])
+        yield {k: np.ascontiguousarray(np.stack([np.asarray(it[k], np.float32)
+                                                 for it in items]))
                for k in items[0]}
 
 
@@ -155,18 +167,22 @@ def flow_forward(model, batch: dict, arch: str, iters: int, train: bool = True) 
     voxel and the first frame, in training with the second frame (its
     pseudo-feature loss) and the reversed voxel where the batch has one;
     E-RAFT on (previous voxel, voxel); RAFT on the frames as RGB in
-    [0, 255]. ``train``: every iteration's flow (the sequence loss),
-    else the last only."""
+    [0, 255]; DCEIFlow reads the first channel of RGB frames.
+    ``train``: every iteration's flow (the sequence loss), else the last
+    only."""
     if arch == "raft":
         return model(255.0 * batch["gt_img0"], 255.0 * batch["gt_img1"], iters=iters,
                      collect_preds=train)
     if arch == "eraft":
         return model(batch["event_voxel_old"], batch["event_voxel"], iters=iters,
                      collect_preds=train)
+    # an RGB batch's first channel, dense: elementwise ops on the strided
+    # slice give it channels-last strides (its C is 1), which the convs keep
+    # and the kernels refuse
+    frame0, frame1 = (batch[k][:, :1].contiguous() for k in ("gt_img0", "gt_img1"))
     if not train:
-        return model(batch["event_voxel"], batch["gt_img0"][:, :1], iters=iters)
-    return model(batch["event_voxel"], batch["gt_img0"][:, :1], iters=iters, collect_preds=True,
-                 image2=batch["gt_img1"][:, :1],
+        return model(batch["event_voxel"], frame0, iters=iters)
+    return model(batch["event_voxel"], frame0, iters=iters, collect_preds=True, image2=frame1,
                  reversed_event_voxel=batch.get("event_voxel_bw"))
 
 
@@ -222,14 +238,29 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def run(cfgs, arch: str, opt: str, device=None) -> list:
-    """Pretrain ``arch`` on ``SimFlowPairs`` of ``cfgs.path_to_train_data``
-    (flips on, as the JAX script trains); returns the checkpoints' paths."""
+def training_set(cfgs, data_kind: str):
+    """The pretraining set of ``cfgs.path_to_train_data``: FlyingChairs2's
+    train split augmented as the JAX script augments it (crops of
+    ``cfgs.image_dim``, flips, the draws from ``cfgs.seed``), or
+    ``SimFlowPairs`` with flips."""
+    if data_kind == "chairs2":
+        from .data.flying_chairs2 import FlyingChairs2
+        ds = FlyingChairs2(cfgs, cfgs.path_to_train_data, data_kind="train",
+                           aug_params={"crop_size": tuple(cfgs.image_dim), "do_flip": True,
+                                       "seed": cfgs.seed})
+        print(f"FlyingChairs2: {len(ds)} training samples")
+        return ds
     from .data.sim import SimFlowPairs
-
-    dev = resolve_device(device)
     ds = SimFlowPairs(cfgs, aug=True)
     print(f"SimFlowPairs: {len(ds)} training pairs")
+    return ds
+
+
+def run(cfgs, arch: str, opt: str, device=None, data_kind: str = "sim") -> list:
+    """Pretrain ``arch`` on ``training_set(cfgs, data_kind)``; returns the
+    checkpoints' paths."""
+    dev = resolve_device(device)
+    ds = training_set(cfgs, data_kind)
     model = flow_net(arch, cfgs, dev)
     optimizer = make_flow_optimizer(model, cfgs, opt, max(1, len(ds) // cfgs.batch_size))
     step = make_train_step(cfgs, optimizer, cfgs.is_bi and arch == "dceiflow", arch)
@@ -267,18 +298,14 @@ def main(argv=None) -> int:
     if args.flow_arch == "eraft" and args.data_kind != "sim":
         ap.error("--flow_arch eraft needs --data_kind sim "
                  "(chairs2 has no event stream for the voxel pair)")
-    if args.data_kind == "chairs2":
-        ap.error("--data_kind chairs2 is not in the PyTorch port: the FlyingChairs2 set is "
-                 "not in the repo and its events are HDF5 files the port has no reader for; "
-                 "use --data_kind sim")
-    if args.flow_arch == "raft":
+    if args.flow_arch == "raft" and args.data_kind == "sim":
         ap.error("--flow_arch raft trains on RGB image pairs, which --data_kind sim (grey "
-                 "frames) cannot give; it waits for --data_kind chairs2")
+                 "frames) cannot give; use --data_kind chairs2")
     cfgs = from_args(args)
     # model_mode drives the pairs' keys (cista-eraft adds event_voxel_old) and
     # default_flow_iters (6 or 12)
     cfgs.model_mode = "cista-eraft" if args.flow_arch == "eraft" else "cista-eiflow"
-    run(cfgs, args.flow_arch, args.opt, args.device)
+    run(cfgs, args.flow_arch, args.opt, args.device, args.data_kind)
     return 0
 
 

@@ -12,7 +12,9 @@ frame interval, its voxel and its GT flow), each pack runs as one
 ``step_window`` of the closed loop (its warps following the GT flow under
 ``--is_gt_flow``), and its last step is scored against the next GT frame
 and the GT flow: mse, PSNR, SSIM, photometric loss, EPE, >1/3/5 px rates,
-out%. The first 3 frames of a sequence are not scored. Writes
+out%, and LPIPS where ``CISTA_LPIPS`` (or ``CISTA_LPIPS_ALEX``,
+``CISTA_LPIPS_VGG``) names a weights file, as the JAX CLI reads it. The
+first 3 frames of a sequence are not scored. Writes
 ``frame_%010d.png`` per step (``--no_write_image`` turns them and
 ``result.csv`` off), ``flow/flow_%010d.png`` under ``--is_write_flow``, and
 ``all.csv``: per sequence the means rounded to 4 places, then the mean
@@ -35,7 +37,7 @@ import torch
 from . import config
 from .data.io import EvalWriter, FlowWriter, ImageWriter
 from .data.readers import ImageReader
-from .losses import flow_evaluate, recon_evaluate
+from .losses import flow_evaluate, lpips, recon_evaluate
 from .parallel import spatial
 from .runner import Reconstructor, discover_sequences
 from .timing import HostSplit
@@ -48,13 +50,14 @@ def host_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.float32))[None]
 
 
-def score(rec, flow_final, gt_prev, gt_next, gt_flow, cfg) -> dict:
+def score(rec, flow_final, gt_prev, gt_next, gt_flow, cfg, lpips_params=None) -> dict:
     """The metrics of one step, from host arrays: rec (H, W), flow_final
-    and gt_flow (2, H, W), the GT frames (H, W). On the CPU in f32."""
+    and gt_flow (2, H, W), the GT frames (H, W). On the CPU in f32; LPIPS
+    too with ``lpips_params``."""
     t = host_tensor
     target = {"gt_img0": t(gt_prev)[None], "gt_img1": t(gt_next)[None],
               "gt_flow": t(gt_flow)}
-    metrics = recon_evaluate(t(rec)[None], target["gt_img1"])
+    metrics = recon_evaluate(t(rec)[None], target["gt_img1"], lpips_params)
     metrics.update(flow_evaluate(t(flow_final), target, cfg))
     return {k: float(v) for k, v in metrics.items()}
 
@@ -98,6 +101,7 @@ def evaluate_sequences(cfg, device=None, split: HostSplit | None = None,
     split = split if split is not None else HostSplit()
     recon = recon if recon is not None else Reconstructor(cfg, device=device)
     reader = ImageReader(cfg)
+    lpips_params = lpips.params_from_env()
     rows, seq_means, keys, total = [], [], None, 0
     for path in discover_sequences(cfg.path_to_test_data):
         name = os.path.basename(path).split(".")[0]
@@ -120,7 +124,8 @@ def evaluate_sequences(cfg, device=None, split: HostSplit | None = None,
                                                     use_gt_flow=cfg.is_gt_flow)
             gt_next = frame_pack[n] if n < len(frame_pack) else gt_frame
             with split("metrics"):
-                metrics = score(rec, flow_final, frame_pack[n - 1], gt_next, flows[n - 1], cfg)
+                metrics = score(rec, flow_final, frame_pack[n - 1], gt_next, flows[n - 1], cfg,
+                                lpips_params)
             with split("writers"):
                 image_writer(np.uint8(rec * 255.0), frame_idx + 1)
                 flow_writer(flow_final, frame_idx)

@@ -12,8 +12,9 @@ folder (PNG frames, timestamps, events as one ``events.txt``/``.zip``/
 about ``--num_events`` events (``ImageReader.update_event_frame_pack_fix``;
 one GT frame may span several reconstructions), each window runs as one
 ``step_window``, and its last step is scored against the GT frame (ECD's
-normalised to its 0th-100th percentiles): mse, PSNR, SSIM, and the flow
-warp loss FWL of the last voxel along the last flow. The first 3 windows
+normalised to its 0th-100th percentiles): mse, PSNR, SSIM (and LPIPS
+with ``CISTA_LPIPS``, as in ``test_with_flow``), and the flow warp loss FWL
+of the last voxel along the last flow. The first 3 windows
 are not scored. Outputs as ``test_with_flow``, plus the last voxel's
 red-blue preview under ``--is_write_event``.
 """
@@ -28,7 +29,7 @@ import numpy as np
 from . import config
 from .data.io import EvalWriter, EventWriter, FlowWriter, ImageWriter, make_event_preview
 from .data.readers import ImageReader
-from .losses import fwl_metric, recon_evaluate
+from .losses import fwl_metric, lpips, recon_evaluate
 from .parallel import spatial
 from .runner import Reconstructor, discover_sequences
 from .test_with_flow import SKIP_FRAMES, finish, host_tensor, summarize
@@ -42,6 +43,7 @@ def evaluate_sequences(cfg, device=None, split: HostSplit | None = None,
     split = split if split is not None else HostSplit()
     recon = recon if recon is not None else Reconstructor(cfg, device=device)
     reader = ImageReader(cfg)
+    lpips_params = lpips.params_from_env()
     rows, seq_means, keys, total = [], [], None, 0
     for path in discover_sequences(cfg.path_to_test_data):
         name = os.path.basename(path).split(".")[0]
@@ -65,7 +67,8 @@ def evaluate_sequences(cfg, device=None, split: HostSplit | None = None,
                 evs = voxels[-1]
             with split("metrics"):
                 gt = normalize_image(gt_frame, 0, 100) if cfg.dataset == "ECD" else gt_frame
-                metrics = recon_evaluate(host_tensor(rec)[None], host_tensor(gt)[None])
+                metrics = recon_evaluate(host_tensor(rec)[None], host_tensor(gt)[None],
+                                         lpips_params)
                 metrics = {k: float(v) for k, v in metrics.items()}
             with split("fwl"):
                 metrics["FWL"] = float(fwl_metric(host_tensor(evs), host_tensor(flow_final)))

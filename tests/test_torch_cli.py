@@ -45,6 +45,18 @@ H, W = 48, 64
 COMMON = dict(image_dim=(H, W), depth=1, base_channels=16, flow_iters=1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's small CPU shapes: the test
+    runner's workers share the machine's cores, and torch's thread pools
+    then wait on one another."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def work(tmp_path_factory):
     return tmp_path_factory.mktemp("cli")
@@ -134,6 +146,26 @@ def test_wo_flow_ecd_zip_matches_jax(work, ecd, tmp_path, monkeypatch, mode):
     assert [list(map(str, r)) for r in rows] == [list(map(str, r)) for r in jrows]
     assert rows[-1][-1] > 0
     assert_same_outputs(a, b)
+
+
+def test_wo_flow_lpips_from_env_matches_jax(work, ecd, tmp_path, monkeypatch):
+    """With ``CISTA_LPIPS`` naming a weights file (AlexNet LPIPS from a seed,
+    in the JAX npz layout) both CLIs add an 'lpips' column, the same rows."""
+    from cista_flow_torch.losses import lpips as TL
+    monkeypatch.setattr(JV, "_USE_NATIVE", False)
+    weights = tmp_path / "alex.npz"
+    TL.save_npz(TL.init(seed=3), str(weights))
+    monkeypatch.setenv("CISTA_LPIPS", str(weights))
+    kw = dict(COMMON, model_mode="cista-eiflow", path_to_test_data=str(ecd),
+              path_to_test_model=checkpoint(work, "cista-eiflow"), dataset="ECD",
+              num_events=2000, test_data_mode="upsampled", is_write_image=False)
+    jrows, jkeys = jax_cli("test_wo_flow").evaluate_sequences(
+        JConfig(**kw, output_folder=str(tmp_path / "jax")))
+    rows, keys, _ = test_wo_flow.evaluate_sequences(
+        Config(**kw, output_folder=str(tmp_path / "port")), device="cpu")
+    assert keys == jkeys == ["mse", "psnr", "ssim", "lpips", "FWL"]
+    assert [list(map(str, r)) for r in rows] == [list(map(str, r)) for r in jrows]
+    assert rows[-1][keys.index("lpips") + 1] > 0
 
 
 def test_with_flow_gt_flow_matches_jax(work, tmp_path, monkeypatch):

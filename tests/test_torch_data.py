@@ -132,13 +132,13 @@ def test_png_decodes_every_row_filter_as_opencv(tmp_path, image):
     np.testing.assert_array_equal(cv2.imread(str(tmp_path / "port.png"), cv2.IMREAD_UNCHANGED), img)
 
 
-@pytest.mark.parametrize("depth,colour,interlace", [(16, 0, 0), (8, 2, 0), (8, 0, 1),
+@pytest.mark.parametrize("depth,colour,interlace", [(16, 4, 0), (8, 6, 0), (8, 0, 1),
                                                     (4, 0, 0)])
 def test_png_refuses_other_kinds(tmp_path, depth, colour, interlace):
     img = np.zeros((4, 6), np.uint8)
     path = tmp_path / "x.png"
     path.write_bytes(_encode(img, [0] * 4, depth, colour, interlace))
-    with pytest.raises(ValueError, match="only 8-bit grayscale"):
+    with pytest.raises(ValueError, match="only 8- or 16-bit grey or RGB"):
         png.read_png(str(path))
     data = bytearray(_encode(img, [0] * 4))
     data[-20] ^= 0xFF                               # a byte of the last IDAT's data

@@ -360,17 +360,22 @@ def test_bf16_step_runs_and_casts_the_inputs(root, monkeypatch):
 
 # ------------------------------- the entry points ------------------------------
 
-def test_pretrain_cli_refuses_what_the_port_lacks(root, capsys):
-    """``--data_kind chairs2`` (the default), RAFT on simulated data and
-    E-RAFT on chairs2 refuse at once, naming why."""
+def test_pretrain_cli_refuses_what_the_port_lacks(root, tmp_path, capsys):
+    """RAFT on simulated data (grey frames) and E-RAFT on chairs2 (no voxel
+    pair) refuse at once, naming why; ``--data_kind chairs2`` (the default)
+    and RAFT on it are taken (``tests/test_torch_chairs2.py`` trains
+    them)."""
     base = ["--path_to_train_data", root, "--device", "cpu"]
     for extra, why in ((["--flow_arch", "eraft"], "chairs2 has no event stream"),
-                       ([], "no reader"),
                        (["--data_kind", "sim", "--flow_arch", "raft"], "RGB")):
         with pytest.raises(SystemExit) as e:
             pf.main(base + extra)
         assert e.value.code == 2
         assert why in capsys.readouterr().err
+    for extra in ([], ["--flow_arch", "raft", "--image_dim", "64", "96"]):   # no chairs2 samples
+        assert pf.main(base + extra + ["--epochs", "0", "--path_to_model",
+                                       str(tmp_path)]) == 0
+        assert "FlyingChairs2: 0 training samples" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("hw, ok", [((368, 496), False), ((48, 64), False), ((32, 64), True),
