@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py [--kernels-only | --train-only | --pretrain-only | --dp-only |
                            --spatial-only | --spatial-cards | --spatial-train-only |
-                           --mvsec-only | --chairs2-only]
+                           --mvsec-only | --chairs2-only | --surface-only]
 
 Phases (any failure raises and the exit code is non-zero):
  1. the card: ``nvidia-smi`` name and power limit, torch's device name;
  2. build the CUDA kernels from ``cista_flow_torch/csrc`` (one nvcc for each
-    source, in parallel) into the ignored ``build/kernels``;
+    source, in parallel) into the ignored ``build/kernels``, and the host
+    event library (``events/native.py``: g++ on ``csrc/host/cista_events.cpp``)
+    into the ignored ``build/host``;
  3. each of the eight kernels (K1, K2, K3, K3a, K4, K4s, K5, K6) against its
     plain PyTorch version on the card, at the shapes the serving paths give
     it (180x240 frames, batch 8), in bf16 and f32 (cuDNN's TF32 off for the
@@ -190,13 +192,26 @@ Phases (any failure raises and the exit code is non-zero):
     above the gate's floors; (d) windows/s and the
     host split per window; (e) ``evaluate --harness_mode mvsec``: targets
     saved, then held at 1%.
+16. The library surface (``library_surface``): (a) the host event library:
+    its voxels bit for bit numpy's at 20000 events (260x346) and 15000
+    (180x240), ``preprocess_std`` and the triangular voxel within rtol 1e-5
+    / atol 1e-6 of numpy's, host ms per window against numpy, and phase 15
+    (d)'s host split on the library and on numpy in the same call; (b)
+    ``test_mvsec --mesh_shape 2 --mesh_axes spatial``'s body on two gloo
+    ranks sharing the card over phase 15's recording (f32 ``all.csv``
+    within 1e-4 of one process's, bf16 above the floors and within
+    ``MVSEC_BF16_DEV`` of f32, each rank's launches); (c) ``SmallEncoder``,
+    ``SmallUpdateBlock``, ``lookup_efficient_corr`` (also against K1's
+    lookup of the materialised pyramid) and the cell variants on the card
+    in f32 and bf16 against the CPU.
     ``--train-only`` runs the build, the kernel checks and phases 9 to 12;
     ``--dp-only`` the build and phase 12; ``--spatial-only`` the build,
     phase 13's kernel checks and phase 13, ``--spatial-cards`` the build
     and its (c); ``--spatial-train-only`` the build and phase 14;
     ``--pretrain-only`` the build, (c) and phase 11; ``--mvsec-only`` the
     build, the checks at the new shapes and phase 15; ``--chairs2-only`` the
-    build and phase 11 (e). ``--grad-sources``
+    build and phase 11 (e); ``--surface-only`` the build and phase 16.
+    ``--grad-sources``
     (not part of the smoke) builds and then compares the card's f32
     pretraining gradients and the CPU's with an f64 evaluation under
     settings that each take one suspect out (``grad_sources``).
@@ -293,7 +308,7 @@ def main(argv) -> int:
         return 2
     modes = ("--kernels-only", "--train-only", "--pretrain-only", "--grad-sources",
              "--dp-only", "--spatial-only", "--spatial-cards", "--spatial-train-only",
-             "--mvsec-only", "--chairs2-only")
+             "--mvsec-only", "--chairs2-only", "--surface-only")
     if argv not in ([], *([m] for m in modes)):
         print(f"usage: chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -315,6 +330,13 @@ def main(argv) -> int:
     sources = [k for k in counters.values() if isinstance(k, cuda_build.Kernel)]
     secs = cuda_build.build_all(sources)
     print(f"build: {secs:.1f} s for {len(sources)} sources, {len(counters)} kernels")
+    from cista_flow_torch.events import native
+    t_host = time.perf_counter()
+    built = not native.so_path().exists()
+    native.get_lib()
+    HOST_LIB_BUILD.update(seconds=round(time.perf_counter() - t_host, 3), built_now=built,
+                          command=" ".join([native.COMPILER, *native.CXX_FLAGS]))
+    print(f"host event library: {HOST_LIB_BUILD}")
     for k in sources:
         print(f"  ptxas {k.name}: {ptxas_summary(k.build_log)}")
     if argv == ["--grad-sources"]:
@@ -325,7 +347,7 @@ def main(argv) -> int:
     # (the f32 plain versions are cuDNN convs: held in full f32 for the phase)
     checks = {}
     alone = (["--dp-only"], ["--spatial-only"], ["--spatial-cards"], ["--spatial-train-only"],
-             ["--mvsec-only"], ["--chairs2-only"])
+             ["--mvsec-only"], ["--chairs2-only"], ["--surface-only"])
     if argv not in (["--pretrain-only"], *alone):
         with cudnn_fp32():
             checks = kernel_checks(torch)
@@ -352,14 +374,16 @@ def main(argv) -> int:
     launches = {k: 0 for k in (*counters, "K2b")}
     phases = (flagship_path, eraft_path, variant_windows, f32_at_default_flags,
               gate_replay, serving_clis, idnet_path, long_chunks, training_path, train_modes,
-              flow_pretraining, data_parallel, spatial, spatial_training, mvsec_eval)
+              flow_pretraining, data_parallel, spatial, spatial_training, mvsec_eval,
+              library_surface)
     if argv:
         phases = {"--train-only": phases[8:12], "--pretrain-only": (flow_pretraining,),
                   "--dp-only": (data_parallel,), "--spatial-only": (spatial,),
                   "--spatial-cards": (spatial_across_cards,),
                   "--spatial-train-only": (spatial_training,),
                   "--mvsec-only": (mvsec_eval,),
-                  "--chairs2-only": (chairs2_pretraining,)}[argv[0]]
+                  "--chairs2-only": (chairs2_pretraining,),
+                  "--surface-only": (library_surface,)}[argv[0]]
     for phase in phases:
         t_phase = time.perf_counter()
         for key, n in phase(torch, repo, counters).items():
@@ -370,7 +394,7 @@ def main(argv) -> int:
     if argv:
         pretraining = argv in (["--pretrain-only"], ["--chairs2-only"])
         path = ("K1", "K2", "K4", "K5") + (() if pretraining else ("K3",))
-        path += ("K4s", "K2b") if argv in alone[1:4] else ()
+        path += ("K4s", "K2b") if argv in (*alone[1:4], ["--surface-only"]) else ()
         idle = [k for k in path if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")
@@ -2088,6 +2112,9 @@ def busy_share(torch, step, model, seq, ms: float) -> float:
     return kernels / ms
 
 
+REMAT_T = 5              # the remat pair's unroll: TRAIN_T until phase 16 needed the time
+
+
 def modes_bf16(torch, repo: Path, counters: dict) -> dict:
     """bf16 training at full width at each mode's reference default
     (``MODE_BF16``), T = 10, batch 4, from the anchors: one warm-up step,
@@ -2095,7 +2122,8 @@ def modes_bf16(torch, repo: Path, counters: dict) -> dict:
     CUDA events with the peak memory, the forward/backward/optimizer split,
     and the device-busy share of a traced step. Then remat on and off at
     cista-eraft (12,5): loss and gradients against the run without remat
-    and against a second run without it (run-to-run), and both peaks."""
+    and against a second run without it (run-to-run), and both peaks, at
+    T = ``REMAT_T``."""
     from cista_flow_torch.config import Config
     from cista_flow_torch.parallel import train_step as TS
 
@@ -2138,7 +2166,7 @@ def modes_bf16(torch, repo: Path, counters: dict) -> dict:
     mode, iters, depth, anchor, fix, loss_mode, gt = MODE_BF16[0]
     cfg = Config(image_dim=(H, W), model_mode=mode, depth=depth, flow_iters=iters,
                  dtype="bfloat16")
-    seq = train_batch(torch, repo, TRAIN_T, TRAIN_BATCH, "cuda", mode)
+    seq = train_batch(torch, repo, REMAT_T, TRAIN_BATCH, "cuda", mode)
     model = mode_model(torch, cfg, repo, anchor, "cuda").train()
     TS.freeze(model, fix)
     runs = {}
@@ -2156,8 +2184,8 @@ def modes_bf16(torch, repo: Path, counters: dict) -> dict:
         moved = {int(b) - t for (n, b), t in zip(
             ((n, b) for n, b in model.named_buffers() if n.endswith("num_batches_tracked")),
             tracked)}
-        if moved != {TRAIN_T}:
-            raise AssertionError(f"remat {tag}: BN counts moved by {moved}, not {TRAIN_T}")
+        if moved != {REMAT_T}:
+            raise AssertionError(f"remat {tag}: BN counts moved by {moved}, not {REMAT_T}")
         runs[tag] = (float(loss), {n: p.grad.detach().float().clone()
                                    for n, p in model.named_parameters() if p.grad is not None},
                      torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -3044,7 +3072,7 @@ def flow_pretraining(torch, repo: Path, counters: dict) -> dict:
 
 # phase 12: f32 (fix, loss_mode, tag) steps of (a) and (c), T = 2, global batch 2
 DP_PHASES = (("flow", "rec", "phase 2"), ("rec", "both", "phase 3 flow half"))
-DP_T, DP_BATCH, DP_BF16_STEPS = 2, 2, 3
+DP_T, DP_BATCH, DP_BF16_STEPS = 2, 2, 2   # bf16: 3 steps until phase 16 needed the time
 
 
 def dp_seq(torch, repo: Path, t_len: int, batch: int) -> str:
@@ -3320,6 +3348,8 @@ SPATIAL_POINTS = (("cista-eiflow", 6, 5, "gate/flagship_sim40_f16.npz",
                    (("float32", True), ("bfloat16", True)), True))
 SPATIAL_SIZES = ((H, W), SAMSUNG)
 SPATIAL_STEPS = 8        # phase 13's stream; 16 (STEPS) until phase 15 needed the time
+SPATIAL_F32_SIZES = ((H, W),)   # the f32 rank runs; 480x640's too until phase 16 needed the
+                                # time (its bf16 runs still hold against the f32 one process)
 SPATIAL_K2 = {}          # the banded K2's row of the kernels line, once phase 13 ran
 
 
@@ -3473,7 +3503,8 @@ def spatial_ranks(torch, repo: Path, device: str, backend, tag: str, timed: bool
         inputs[hw] = arrays
         for mode, iters, depth, anchor, runs, half in SPATIAL_POINTS:
             for dtype, window in runs:
-                if (timed and dtype != "bfloat16") or (not window and hw != (H, W)):
+                if ((timed and dtype != "bfloat16") or (not window and hw != (H, W))
+                        or (dtype == "float32" and hw not in SPATIAL_F32_SIZES)):
                     continue
                 cfg = Config(image_dim=hw, model_mode=mode, depth=depth, flow_iters=iters,
                              dtype=dtype, flow_half=half, path_to_test_model=str(repo / anchor))
@@ -3876,6 +3907,56 @@ def read_all_csv(path: Path) -> list:
         return list(csv.reader(f, delimiter="\t"))
 
 
+MVSEC_NATIVE_SPLIT = []             # phase 15 (d)'s host split, for phase 16 (a)
+
+
+def mvsec_run(repo: Path, counters: dict, run: str, dtype: str, items: int,
+              voxelize=None) -> tuple:
+    """``test_mvsec.evaluate`` in this process on phase 15's recording
+    under cista-eiflow (6,5), ``items`` items, with the launches of every
+    window checked (``window_launches``) and the host split per item,
+    its HDF5 reads and GT flow (``timed_calls``) split out of 'chunking'.
+    ``voxelize`` (a pair of the voxel and normalise functions) replaces the
+    MVSEC dataset's. Returns (mean, split, rows, launches)."""
+    import contextlib
+    import io as _io
+
+    from cista_flow_torch import test_mvsec
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.data import hdf5, mvsec
+    from cista_flow_torch.timing import HostSplit
+
+    root = repo / "build" / "mvsec_data"
+    cfg = Config(image_dim=MVSEC_HW, model_mode="cista-eiflow", depth=5, flow_iters=6,
+                 dtype=dtype, path_to_test_model=str(repo / "gate" / "flagship_sim40_f16.npz"),
+                 path_to_test_data=str(root), num_events=MVSEC_EVENTS, test_img_num=items,
+                 output_folder=str(root / "out" / run.replace(" ", "_")))
+    targets = [(hdf5.Dataset, "__getitem__", "hdf5"),
+               (mvsec, "generate_corresponding_gt_flow", "gt_flow")]
+    saved = (mvsec.events_to_voxel_grid, mvsec.event_preprocess)
+    split, reads = HostSplit(), {}
+    t1 = time.perf_counter()
+    try:
+        if voxelize is not None:
+            mvsec.events_to_voxel_grid, mvsec.event_preprocess = voxelize
+        with recorded_windows() as lengths, contextlib.redirect_stdout(_io.StringIO()), \
+                timed_calls(reads, targets):
+            (rows, keys, mean), got = counted(
+                counters, lambda: test_mvsec.evaluate(cfg, device="cuda", split=split))
+    finally:
+        mvsec.events_to_voxel_grid, mvsec.event_preprocess = saved
+    secs = time.perf_counter() - t1
+    split.seconds["chunking"] -= sum(reads.values())
+    split.seconds = {**reads, **split.seconds}
+    want = {}
+    for n in lengths:
+        for key, v in window_launches("cista-eiflow", 6, n).items():
+            want[key] = want.get(key, 0) + v
+    expect_launches(f"test_mvsec {run} ({secs:.1f} s): {len(lengths)} calls of "
+                    f"{lengths} windows", got, want)
+    return mean, split, rows, got
+
+
 def mvsec_eval(torch, repo: Path, counters: dict) -> dict:
     """Phase 15: MVSEC. (a) ``data.sim.write_mvsec_hdf5`` writes
     indoor_flying4 at 260x346 (``MVSEC_REAL`` simulated frames) into the
@@ -3901,12 +3982,10 @@ def mvsec_eval(torch, repo: Path, counters: dict) -> dict:
     import shutil
     import subprocess
 
-    from cista_flow_torch import evaluate, test_mvsec
-    from cista_flow_torch.config import Config
-    from cista_flow_torch.data import hdf5, mvsec
+    from cista_flow_torch import evaluate
+    from cista_flow_torch.data import hdf5
     from cista_flow_torch.data.mvsec import VALID_TIME_INDEX
     from cista_flow_torch.data.sim import simulate_sequence, write_mvsec_hdf5
-    from cista_flow_torch.timing import HostSplit
 
     root = repo / "build" / "mvsec_data"
     shutil.rmtree(root, ignore_errors=True)
@@ -3982,32 +4061,12 @@ def mvsec_eval(torch, repo: Path, counters: dict) -> dict:
 
     total = {k: 0 for k in counters}
     runs = {}
-    targets = [(hdf5.Dataset, "__getitem__", "hdf5"),
-               (mvsec, "generate_corresponding_gt_flow", "gt_flow")]
     for run, dtype in (("f32", "float32"), ("bf16", "bfloat16"), ("bf16 again", "bfloat16")):
-        cfg = Config(image_dim=MVSEC_HW, model_mode="cista-eiflow", depth=5, flow_iters=6,
-                     dtype=dtype, path_to_test_model=str(anchor), path_to_test_data=str(root),
-                     num_events=MVSEC_EVENTS, test_img_num=MVSEC_ITEMS,
-                     output_folder=str(root / "out" / run.replace(" ", "_")))
-        split, reads = HostSplit(), {}
-        t1 = time.perf_counter()
-        with recorded_windows() as lengths, contextlib.redirect_stdout(_io.StringIO()), \
-                timed_calls(reads, targets):
-            (rows, keys, mean), got = counted(
-                counters, lambda: test_mvsec.evaluate(cfg, device="cuda", split=split))
-        secs = time.perf_counter() - t1
-        # the item's HDF5 reads and GT flow inside 'chunking', split out
-        split.seconds["chunking"] -= sum(reads.values())
-        split.seconds = {**reads, **split.seconds}
-        want = {}
-        for n in lengths:
-            for key, v in window_launches("cista-eiflow", 6, n).items():
-                want[key] = want.get(key, 0) + v
-        expect_launches(f"(b) test_mvsec {run} ({secs:.1f} s): {len(lengths)} calls of "
-                        f"{lengths} windows", got, want)
+        mean, split, rows, got = mvsec_run(repo, counters, run, dtype, MVSEC_ITEMS)
         for key in total:
             total[key] += got[key]
         runs[run] = (mean, split, rows)
+    MVSEC_NATIVE_SPLIT.append(runs["bf16 again"][1])
     f32, bf = runs["f32"][0], runs["bf16"][0]
     fl = GATE_FLOORS["cista-eiflow"]
     dev = {k: bf[k] - v for k, v in f32.items()}
@@ -4043,6 +4102,289 @@ def mvsec_eval(torch, repo: Path, counters: dict) -> dict:
           f"exit {codes[1]} ({log.getvalue().strip().splitlines()[-1]})")
     if codes != [0, 0]:
         raise AssertionError(f"evaluate --harness_mode mvsec: exits {codes}")
+    return total
+
+
+# phase 16: the library surface. (a) the host event library at MVSEC's
+# window and at the serving CLIs' 15000 events at 180x240; (b) test_mvsec on
+# two row bands over phase 15's recording; (c) the modules no path of the
+# smoke runs, at serving shapes, against the CPU
+HOST_LIB_BUILD = {}                  # the host event library's build, from phase 2
+HOST_WINDOWS = ((MVSEC_EVENTS, MVSEC_HW), (15000, (H, W)))
+HOST_REPEATS = 5
+SURFACE_MVSEC_ITEMS = MVSEC_ITEMS     # 7 scored frames: at 6 items' 3, f32 is 22.59 dB
+SURFACE_F32_TOL = 1e-4               # max abs error over the reference's largest magnitude
+SURFACE_BF16_TOL = 5e-2              # relative L2 error against the CPU's f32: 8-bit significands over ~20 layers
+SMALL_ENCODER_NORMS = 21             # the head's, 3 a bottleneck block, 2 downsamples
+
+
+def host_event_library(repo: Path, counters: dict) -> dict:
+    """Phase 16 (a): the host event library built from the port's source
+    on this machine (phase 2 built it): ``voxelize_events`` in both event
+    orders bit for bit ``events_to_voxel_grid_numpy``, ``preprocess_std``
+    within rtol 1e-5 / atol 1e-6 of ``event_preprocess_numpy`` (f64 against
+    pairwise f32 sums), ``voxelize_triangular`` within the same of
+    ``mvsec_utils.events_to_voxel_triangular`` (and whether bit for bit);
+    host ms per window of each, median of ``HOST_REPEATS``; then phase 15
+    (d)'s host split (bf16, ``MVSEC_ITEMS`` items) on the library and on
+    numpy in this call."""
+    from cista_flow_torch.data import mvsec_utils
+    from cista_flow_torch.events import native, voxel
+
+    def median_ms(fn):
+        ts = []
+        for _ in range(HOST_REPEATS):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(ts)
+
+    print(f"  (a) host event library {native.so_path().name}: {HOST_LIB_BUILD}")
+    rng = np.random.default_rng(16)
+    for n, (h, w) in HOST_WINDOWS:
+        e = np.stack([np.sort(rng.random(n)), rng.integers(0, w, n), rng.integers(0, h, n),
+                      rng.integers(0, 2, n)], axis=1).astype(np.float64)
+        for rev in (False, True):
+            a = voxel.events_to_voxel_grid(e, 5, w, h, rev)
+            if a.tobytes() != voxel.events_to_voxel_grid_numpy(e, 5, w, h, rev).tobytes():
+                raise AssertionError(f"host library: voxel of {n} events (reverse {rev}) "
+                                     "differs from numpy")
+            for hot in (False, True):
+                got = voxel.event_preprocess(a.copy(), filter_hot_pixel=hot)
+                ref = voxel.event_preprocess_numpy(a.copy(), filter_hot_pixel=hot)
+                if not np.allclose(got, ref, rtol=1e-5, atol=1e-6):
+                    raise AssertionError(f"host library: preprocess_std (hot {hot}) off by "
+                                         f"{np.abs(got - ref).max()}")
+        lib = median_ms(lambda: voxel.event_preprocess(voxel.events_to_voxel_grid(e, 5, w, h),
+                                                       filter_hot_pixel=True))
+        plain = median_ms(lambda: voxel.event_preprocess_numpy(
+            voxel.events_to_voxel_grid_numpy(e, 5, w, h), filter_hot_pixel=True))
+        exytp = np.stack([e[:, 1], e[:, 2], e[:, 0], 2 * e[:, 3] - 1], axis=1)
+        tri = native.voxelize_triangular(exytp, 5, h, w)
+        tri_ref = mvsec_utils.events_to_voxel_triangular(exytp, 5, h, w)
+        if not np.allclose(tri, tri_ref, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"host library: triangular voxel off by "
+                                 f"{np.abs(tri - tri_ref).max()}")
+        tri_lib = median_ms(lambda: native.voxelize_triangular(exytp, 5, h, w))
+        tri_plain = median_ms(lambda: mvsec_utils.events_to_voxel_triangular(exytp, 5, h, w))
+        print(f"      {n} events at {h}x{w}: voxels bit for bit numpy's in both orders, "
+              f"preprocess_std within rtol 1e-5 / atol 1e-6; host ms per window (voxel + "
+              f"normalise) library {lib:.3f}, numpy {plain:.3f} ({plain / lib:.1f}x); "
+              f"triangular {'bit for bit' if tri.tobytes() == tri_ref.tobytes() else 'max abs ' + format(float(np.abs(tri - tri_ref).max()), '.2e')}, "
+              f"library {tri_lib:.3f} ms, numpy {tri_plain:.3f} ms")
+    runs, total = {}, {k: 0 for k in counters}
+    for run, vox in (("bf16 library", None),
+                     ("bf16 numpy", (voxel.events_to_voxel_grid_numpy,
+                                     voxel.event_preprocess_numpy)),
+                     ("bf16 library again", None),
+                     ("bf16 numpy again", (voxel.events_to_voxel_grid_numpy,
+                                           voxel.event_preprocess_numpy))):
+        _, runs[run], _, got = mvsec_run(repo, counters, run, "bfloat16", MVSEC_ITEMS, vox)
+        for k in total:
+            total[k] += got[k]
+    if MVSEC_NATIVE_SPLIT:
+        runs["phase 15 (d), library"] = MVSEC_NATIVE_SPLIT[0]
+    for run, split in runs.items():
+        ms = split.per_window_ms()
+        print(f"      MVSEC host split, {run}: {split.windows / sum(split.seconds.values()):.1f} "
+              f"windows/s; host ms per window " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+    return total
+
+
+def sharded_mvsec(torch, repo: Path, counters: dict) -> dict:
+    """Phase 16 (b): ``test_mvsec --mesh_shape 2 --mesh_axes spatial``'s
+    body (``parallel.check.mvsec_rank``, as ``spatial.serve`` runs it) on
+    two gloo ranks sharing cuda:0, phase 15's recording, cista-eiflow
+    (6,5), ``SURFACE_MVSEC_ITEMS`` items, f32 and bf16: f32's ``all.csv``
+    within 1e-4 (one step of its rounding) of one process's on the card
+    (phase 15's f32 run in this call, the same run here without it),
+    bf16 above the gate's floors and within ``MVSEC_BF16_DEV`` of f32;
+    each rank's launches ``rank_launches`` (K2 counted as K2b)."""
+    from cista_flow_torch import test_mvsec
+    from cista_flow_torch.config import Config
+    from cista_flow_torch.parallel import check
+
+    root = repo / "build" / "mvsec_data"
+    anchor = repo / "gate" / "flagship_sim40_f16.npz"
+    total = {k: 0 for k in counters}
+    total["K2b"] = 0
+
+    def cfg(dtype, out, **mesh):
+        return Config(image_dim=MVSEC_HW, model_mode="cista-eiflow", depth=5, flow_iters=6,
+                      dtype=dtype, path_to_test_model=str(anchor), path_to_test_data=str(root),
+                      num_events=MVSEC_EVENTS, test_img_num=SURFACE_MVSEC_ITEMS,
+                      output_folder=str(root / out), **mesh)
+    one_csv = root / "out" / "f32" / anchor.stem / "all.csv"
+    if not MVSEC_NATIVE_SPLIT:                  # phase 15 did not run in this call
+        one_csv = root / "one_f32" / anchor.stem / "all.csv"
+        _, got = counted(counters, lambda: test_mvsec.evaluate(cfg("float32", "one_f32"),
+                                                                device="cuda"))
+        for k in counters:
+            total[k] += got[k]
+    dtypes = ("float32", "bfloat16")
+    t0 = time.perf_counter()
+    ranks = check.run(check.mvsec_rank, 2, "cuda:0",
+                      [dict(cfg=cfg(d, f"ranks_{d}", mesh_shape="2", mesh_axes="spatial"))
+                       for d in dtypes], str(root / "ranks_out"), backend="gloo")
+    print(f"  (b) test_mvsec on two ranks sharing cuda:0 over gloo: {len(dtypes)} runs of "
+          f"{SURFACE_MVSEC_ITEMS} items in {time.perf_counter() - t0:.1f} s")
+    means = {}
+    for dtype, r0, r1 in zip(dtypes, *ranks):
+        rows, _, means[dtype] = r0["out"]
+        if r1["out"] is not None:
+            raise AssertionError("test_mvsec on ranks: rank 1 returned a result")
+        for r, res in enumerate((r0, r1)):
+            expect_launches(f"(b) test_mvsec {dtype}, rank {r} ({r0['windows']} windows)",
+                            res["launches"],
+                            rank_launches("cista-eiflow", 6, r0["windows"], True))
+            for k, n in res["launches"].items():
+                total["K2b" if k == "K2" else k] += n
+        sent = {k: sum(res["sent"][k] for res in (r0, r1)) / 2 / r0["windows"] / 1e6
+                for k in r0["sent"]}
+        print(f"      {dtype}: mean " + ", ".join(f"{k} {v:.4f}" for k, v in means[dtype].items())
+              + "; MB sent per rank and window " + ", ".join(f"{k} {v:.3f}"
+                                                            for k, v in sent.items()))
+    a = read_all_csv(root / "ranks_float32" / anchor.stem / "all.csv")
+    b = read_all_csv(one_csv)
+    worst = max(abs(float(u) - float(v)) for ra, rb in zip(a[1:], b[1:])
+                for u, v in zip(ra[1:-1], rb[1:-1]))
+    same = [[r[0], r[-1]] for r in a] == [[r[0], r[-1]] for r in b] and len(a) == 3
+    print(f"      f32 all.csv on two ranks against one process ({one_csv.relative_to(root)}): "
+          f"largest difference {worst:.4f} (tol 1e-4); rows and frame counts "
+          f"{'equal' if same else 'DIFFER'}")
+    if not same or worst > 1e-4 + 1e-9:
+        raise AssertionError(f"test_mvsec on two ranks: all.csv {a} against one process {b}")
+    f32, bf = means["float32"], means["bfloat16"]
+    fl = GATE_FLOORS["cista-eiflow"]
+    near = all(abs(bf[k] - f32[k]) <= tol for k, tol in MVSEC_BF16_DEV.items())
+    above = bf["psnr"] > fl["psnr"] and bf["ssim"] > fl["ssim"]
+    print(f"      bf16 - f32 on two ranks: " + ", ".join(f"{k} {bf[k] - f32[k]:+.4f}" for k in f32)
+          + f" (tol {MVSEC_BF16_DEV}: {'within' if near else 'OUTSIDE'}); against the floors "
+          f"{fl}: {'above' if above else 'BELOW'}")
+    if not (near and above):
+        raise AssertionError(f"test_mvsec on two ranks, bf16 {bf} against f32 {f32}")
+    return total
+
+
+def surface_error(dtype: str, got, ref) -> tuple:
+    """(error, tolerance, name): f32 the max abs error over the
+    reference's largest magnitude, bf16 the relative L2 error."""
+    got, ref = got.detach().float().cpu(), ref.detach().float()
+    if dtype == "float32":
+        return float((got - ref).abs().max() / ref.abs().max()), SURFACE_F32_TOL, "max abs / max"
+    return float((got - ref).norm() / ref.norm()), SURFACE_BF16_TOL, "relative L2"
+
+
+def surface_modules(torch, counters: dict) -> dict:
+    """Phase 16 (c): the modules of the JAX package's library surface that
+    no path of the smoke runs, seeded weights, on the card in f32 (cuDNN's
+    TF32 off) and bf16 against the same module on the CPU in f32
+    (``surface_error``): ``SmallEncoder`` with instance norm at 180x240,
+    batch 8 (K4 ``SMALL_ENCODER_NORMS`` a call), ``SmallUpdateBlock`` at
+    its 1/8 frame, ``lookup_efficient_corr`` at batch 8 on a 24x32 frame
+    (n = 6144 samples) also against ``build_corr_pyramid`` + K1's lookup
+    without ``proj=`` on the card, and each cell variant at CISTA's 64
+    channels and 90x120 (its 64->64 3x3 convs K5)."""
+    import copy
+
+    from cista_flow_torch.nn import encoders, gru, layers
+    from cista_flow_torch.ops import corr, cuda_corr
+
+    total = {k: 0 for k in counters}
+    torch.manual_seed(16)
+    g = torch.Generator().manual_seed(16)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g)
+
+    b = BATCH
+    x_img = rand(b, 3, H, W)
+    enc = encoders.SmallEncoder(3, 128, "instance").eval()
+    upd = gru.SmallUpdateBlock(324, 96).eval()
+    net, inp = rand(b, 96, 23, 30).tanh(), rand(b, 64, 23, 30).relu()
+    cor, emap, flow = rand(b, 324, 23, 30), rand(b, 128, 23, 30), rand(b, 2, 23, 30, scale=3)
+    f1, f2 = rand(b, 256, 24, 32), rand(b, 256, 24, 32)
+    coords = corr.coords_grid(b, 24, 32) + rand(b, 2, 24, 32, scale=4)
+    x64, hc = rand(b, 64, 90, 120), (rand(b, 64, 90, 120), rand(b, 64, 90, 120))
+    x_up, hc_up = rand(b, 64, 45, 60), (rand(b, 64, 90, 120), rand(b, 64, 90, 120))
+    u, lam = rand(1, 64, 1, 1), rand(1, 64, 1, 1).abs()
+    rconv = layers.RecurrentConvLayer(64, 64, activation="relu")
+    rup = layers.RecurrentUpsampleConvLayer(64, 64, "relu")
+    gates = layers.DecayGates(64, 192, 3)
+    neuron = layers.NeuronLSTC(64, 64)
+    cases = {                 # name -> (module or None, fn(module, *inputs), inputs, launches)
+        "SmallEncoder instance 180x240": (enc, lambda m, x: m(x), (x_img,),
+                                          {"K4": SMALL_ENCODER_NORMS}),
+        "SmallUpdateBlock": (upd, lambda m, *a: m(*a)[2], (net, inp, cor, emap, flow), {}),
+        "lookup_efficient_corr n=6144": (None, lambda m, a, c, xy: corr.lookup_efficient_corr(
+            corr.build_efficient_corr(a, c), xy), (f1, f2, coords), {}),
+        "doubletanh": (None, lambda m, *a: layers.doubletanh(*a), (x64, u, lam), {}),
+        "RecurrentConvLayer": (rconv, lambda m, x, h, c: torch.cat(m(x, (h, c))[1], 1),
+                               (x64, *hc), {"K5": 1}),
+        "RecurrentUpsampleConvLayer": (rup, lambda m, x, h, c: torch.cat(m(x, (h, c))[1], 1),
+                                       (x_up, *hc_up), {"K5": 1}),
+        "DecayGates": (gates, lambda m, x, y: m(x, y), (x64, rand(b, 192, 90, 120)), {}),
+        "NeuronLSTC": (neuron, lambda m, x, z: m(x, z), (x64, hc[0]), {"K5": 1}),
+    }
+    with torch.no_grad():
+        refs = {name: fn(m, *inputs) for name, (m, fn, inputs, _) in cases.items()}
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            for name, (m, fn, inputs, want) in cases.items():
+                md = None if m is None else copy.deepcopy(m).to("cuda", dt)
+                # coordinates stay f32, as the flow nets keep them
+                args = [a.to("cuda") if a is coords else a.to("cuda", dt) for a in inputs]
+                with cudnn_fp32_scope(torch, dtype):
+                    out, got = counted(counters, lambda: fn(md, *args))
+                    torch.cuda.synchronize()
+                err, tol, kind = surface_error(dtype, out, refs[name])
+                expect_launches(f"(c) {name} {dtype}: {kind} against the CPU {err:.2e} "
+                                f"(tol {tol:.0e})", got, want)
+                if not np.isfinite(err) or err > tol:
+                    raise AssertionError(f"(c) {name} {dtype}: {err} against the CPU")
+                for k in total:
+                    total[k] += got[k]
+            # the on-the-fly correlation against the volume and K1 on the card
+            a, c = f1.to("cuda", dt), f2.to("cuda", dt)
+            xy = coords.to("cuda")
+            eff = corr.lookup_efficient_corr(corr.build_efficient_corr(a, c), xy)
+            vol, got = counted(counters, lambda: cuda_corr.lookup(corr.build_corr_pyramid(a, c),
+                                                                   xy))
+            torch.cuda.synchronize()
+            err, tol, kind = surface_error(dtype, vol, eff.cpu())
+            expect_launches(f"(c) lookup_efficient_corr {dtype} against build_corr_pyramid + K1 "
+                            f"on the card: {kind} {err:.2e} (tol {tol:.0e})", got, {"K1": 1})
+            if not np.isfinite(err) or err > tol:
+                raise AssertionError(f"(c) efficient corr {dtype}: {err} against K1's lookup")
+            for k in total:
+                total[k] += got[k]
+    return total
+
+
+def library_surface(torch, repo: Path, counters: dict) -> dict:
+    """Phase 16: the host event library, ``test_mvsec`` on row bands and
+    the library surface (``host_event_library``, ``sharded_mvsec``,
+    ``surface_modules``). Writes phase 15's recording first when phase 15
+    did not run."""
+    from cista_flow_torch.data.sim import write_mvsec_hdf5
+
+    root = repo / "build" / "mvsec_data"
+    if not (root / MVSEC_SPLIT / f"{MVSEC_SPLIT}_data.hdf5").exists():
+        write_mvsec_hdf5(str(root / MVSEC_SPLIT), MVSEC_SPLIT, n_real=MVSEC_REAL,
+                         h=MVSEC_HW[0], w=MVSEC_HW[1], seed=0)
+    total = {k: 0 for k in (*counters, "K2b")}
+    t0 = time.perf_counter()
+    for k, n in host_event_library(repo, counters).items():
+        total[k] += n
+    t1 = time.perf_counter()
+    print(f"  (a): {t1 - t0:.1f} s")
+    for part in (sharded_mvsec, surface_modules):
+        got = part(torch, repo, counters) if part is sharded_mvsec else part(torch, counters)
+        for k, n in got.items():
+            total[k] += n
+        t2 = time.perf_counter()
+        print(f"  ({'b' if part is sharded_mvsec else 'c'}): {t2 - t1:.1f} s")
+        t1 = t2
     return total
 
 

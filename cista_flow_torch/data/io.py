@@ -1,12 +1,12 @@
 """The eval CLIs' output writers and pictures (host side, numpy).
 
-Counterparts of cista_flow_tpu/data/io.py:20-133 (ref: utils/data_io.py)
+Counterparts of cista_flow_tpu/data/io.py:20-156 (ref: utils/data_io.py)
 without OpenCV: per-frame PNG writers through the port's PNG codec, the
-tab-separated ``result.csv``, the HSV picture of a flow and the event
-previews. Paths and file names are the JAX package's:
+tab-separated ``result.csv``, the HSV picture of a flow, the event
+previews and the error maps. Paths and file names are the JAX package's:
 ``<output_folder>/<model name>/<sequence>/frame_%010d.png``,
-``.../flow/flow_%010d.png``, ``.../events/events_%010d.png`` and
-``.../result.csv``.
+``.../flow/flow_%010d.png``, ``.../events/events_%010d.png``,
+``.../error_maps/frame_%010d.png`` and ``.../result.csv``.
 """
 from __future__ import annotations
 
@@ -180,3 +180,29 @@ class EventWriter(Writer):
             return
         write_png(os.path.join(self.output_data_folder, f"events_{img_id:010d}.png"),
                   np.uint8(img))
+
+
+# OpenCV's COLORMAP_COOL as a BGR lookup table: blue 255, green 255 - i, red i
+COOL_BGR = np.stack([np.full(256, 255), 255 - np.arange(256), np.arange(256)],
+                    axis=1).astype(np.uint8)
+
+
+class ErrorMapWriter(Writer):
+    """Signed error maps under ``--is_write_emap`` (ref: data_io.py:105-136):
+    reconstruction minus GT in [-0.5, 0.5] scaled to 0..255, coloured by
+    OpenCV's COLORMAP_COOL of 255 minus it, as the JAX writer does."""
+
+    def __init__(self, cfgs, model_name, dataset_name=None):
+        super().__init__(cfgs, model_name, dataset_name)
+        self.enabled = cfgs.is_write_emap
+        if self.enabled:
+            self.output_data_folder = os.path.join(self.output_data_folder, "error_maps")
+            os.makedirs(self.output_data_folder, exist_ok=True)
+
+    def __call__(self, img, gt_img, img_id: int):
+        if not self.enabled:
+            return
+        diff = img.astype(np.float32) / 255.0 - gt_img.astype(np.float32) / 255.0
+        scaled = np.clip((diff + 0.5) * 255, 0, 255).astype(np.uint8)
+        write_png(os.path.join(self.output_data_folder, f"frame_{img_id:010d}.png"),
+                  COOL_BGR[255 - scaled])

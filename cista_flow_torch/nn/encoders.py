@@ -1,9 +1,10 @@
-"""RAFT BasicEncoder, IDNet's LiteEncoder and their residual blocks (NCHW
-``nn.Module``s).
+"""RAFT's BasicEncoder and SmallEncoder, IDNet's LiteEncoder and their
+residual and bottleneck blocks (NCHW ``nn.Module``s).
 
 Counterpart of cista_flow_tpu/nn/encoders.py ``residual_block``,
-``basic_encoder`` (ref: DCEIFlow/core/backbone/raft_encoder.py:125-203) and
-``lite_encoder`` (ref: idn/extractor.py:63-104), with instance norm (kernel
+``basic_encoder`` (ref: DCEIFlow/core/backbone/raft_encoder.py:125-203),
+``bottleneck_block``, ``small_encoder`` (ref: raft_encoder.py:62-122,
+206-255) and ``lite_encoder`` (ref: idn/extractor.py:63-104), with instance norm (kernel
 K4 on the card), eval-mode batch norm or no norm. Convs are zero-padded;
 the square 64- and 128-channel ones are kernel K5 on the card. Module names
 follow the reference, so its state dicts load with ``strict=True``; conv
@@ -118,6 +119,70 @@ class BasicEncoder(_Normed):
         y = self.norm(y, self.norm1, relu=True)
         y = self.layer3(self.layer2(self.layer1(y)))
         return conv2d(y, self.conv2.weight, self.conv2.bias)
+
+
+class BottleneckBlock(_Normed):
+    """1x1 -> 3x3 (stride) -> 1x1 bottleneck to ``cout`` with a 1x1
+    downsample at stride 2 (ref: raft_encoder.py:62-122; the JAX package's
+    ``bottleneck_block``)."""
+
+    def __init__(self, cin, cout, norm_fn="instance", stride=1):
+        super().__init__()
+        self.norm_fn = norm_fn
+        self.stride = stride
+        mid = cout // 4
+        self.conv1 = nn.Conv2d(cin, mid, 1)
+        self.conv2 = nn.Conv2d(mid, mid, 3, padding=1, stride=stride)
+        self.conv3 = nn.Conv2d(mid, cout, 1)
+        batch = norm_fn == "batch"
+        self.norm1 = nn.BatchNorm2d(mid) if batch else None
+        self.norm2 = nn.BatchNorm2d(mid) if batch else None
+        self.norm3 = nn.BatchNorm2d(cout) if batch else None
+        self.norm4 = None
+        self.downsample = None
+        if stride != 1:
+            down = nn.Conv2d(cin, cout, 1, stride=stride)
+            if batch:
+                self.norm4 = nn.BatchNorm2d(cout)
+                self.downsample = nn.Sequential(down, self.norm4)
+            else:
+                self.downsample = nn.Sequential(down)
+        _kaiming(self.conv1, self.conv2, self.conv3,
+                 *(() if self.downsample is None else (self.downsample[0],)))
+
+    def forward(self, x):
+        y = conv2d(x, self.conv1.weight, self.conv1.bias)
+        y = self.norm(y, self.norm1, relu=True)
+        y = conv2d(y, self.conv2.weight, self.conv2.bias, self.stride, 1)
+        y = self.norm(y, self.norm2, relu=True)
+        y = conv2d(y, self.conv3.weight, self.conv3.bias)
+        y = self.norm(y, self.norm3, relu=True)
+        if self.downsample is not None:
+            down = self.downsample[0]
+            x = conv2d(x, down.weight, down.bias, self.stride, 0)
+            x = self.norm(x, self.norm4, relu=False)
+        return torch.relu(x + y)
+
+
+class SmallEncoder(BasicEncoder):
+    """RAFT's SmallEncoder: a 7x7 stride-2 head to 32 channels, three
+    stages of bottleneck blocks (32, 64, 96; strides 1, 2, 2) and a 1x1
+    output conv, 1/8 of the input resolution (ref: raft_encoder.py:206-255;
+    the JAX package's ``small_encoder``). ``norm_route`` as BasicEncoder's."""
+
+    def __init__(self, input_dim=3, output_dim=128, norm_fn="batch"):
+        nn.Module.__init__(self)
+        self.norm_fn = norm_fn
+        self.stride1 = 2
+        self.conv1 = nn.Conv2d(input_dim, 32, 7, stride=2, padding=3)
+        self.norm1 = nn.BatchNorm2d(32) if norm_fn == "batch" else None
+        dims = [(32, 32, 1), (32, 64, 2), (64, 96, 2)]
+        for i, (cin, cout, stride) in enumerate(dims, start=1):
+            setattr(self, f"layer{i}", nn.Sequential(
+                BottleneckBlock(cin, cout, norm_fn, stride),
+                BottleneckBlock(cout, cout, norm_fn, 1)))
+        self.conv2 = nn.Conv2d(96, output_dim, 1)
+        _kaiming(self.conv1, self.conv2)
 
 
 class LiteEncoder(nn.Module):

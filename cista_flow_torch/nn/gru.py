@@ -3,7 +3,8 @@ heads.
 
 Counterpart of cista_flow_tpu/nn/gru.py ``flow_head``, ``sep_conv_gru``,
 ``basic_motion_encoder_event``, ``precompute_update_ema`` and
-``basic_update_block_event`` (DCEIFlow, ref: DCEIFlow/core/decoder/
+``basic_update_block_event``, ``small_motion_encoder`` and
+``small_update_block`` (DCEIFlow, ref: DCEIFlow/core/decoder/
 with_event_updater.py), ``basic_motion_encoder``, ``mask_head`` and
 ``basic_update_block`` (E-RAFT, ref: ERAFT/update.py), and ``conv_gru`` and
 the heads of ``lite_update_block`` (IDNet, ref: idn/update.py). Zero-padded
@@ -175,6 +176,51 @@ class BasicUpdateBlock(nn.Module):
         motion = self.encoder(flow, cor, corr_projected)
         net = self.gru(net, torch.cat([inp, motion], 1))
         return net, 0.25 * self.mask(net), self.flow_head(net)
+
+
+class SmallMotionEncoder(nn.Module):
+    """The event-conditioned small motion encoder (ref:
+    with_event_updater.py:70-87; the JAX package's ``small_motion_encoder``):
+    relu'd 1x1 convs of the correlation (to 96) and of the event map (128
+    -> 64), the flow through a 7x7 and a 3x3 conv (to 32), then a 3x3 conv
+    to 80 channels with the flow appended (82)."""
+
+    def __init__(self, cor_planes=324):
+        super().__init__()
+        self.convc1 = nn.Conv2d(cor_planes, 96, 1)
+        self.conve1 = nn.Conv2d(128, 64, 1)
+        self.convf1 = nn.Conv2d(2, 64, 7)
+        self.convf2 = nn.Conv2d(64, 32, 3)
+        self.conv = nn.Conv2d(96 + 32 + 64, 80, 3)
+
+    def forward(self, flow, emap, corr):
+        cor = torch.relu(_conv(self.convc1, corr))
+        ema = torch.relu(_conv(self.conve1, emap))
+        flo = torch.relu(_conv(self.convf1, flow, 3))
+        flo = torch.relu(_conv(self.convf2, flo, 1))
+        out = torch.relu(_conv(self.conv, torch.cat([cor, ema, flo], 1), 1))
+        return torch.cat([out, flow], 1)
+
+
+class SmallUpdateBlock(nn.Module):
+    """SmallUpdateBlock (ref: with_event_updater.py:115-128; the JAX
+    package's ``small_update_block``): the small motion encoder, a 3x3
+    ConvGRU over the context (64) and the motion features (82), and a flow
+    head at ``hidden_dim`` -> 128."""
+
+    def __init__(self, cor_planes=324, hidden_dim=96):
+        super().__init__()
+        self.encoder = SmallMotionEncoder(cor_planes)
+        self.gru = ConvGRU(hidden_dim, 82 + 64)
+        self.flow_head = FlowHead(hidden_dim, 128)
+
+    def forward(self, net, inp, corr, emap, flow):
+        """Returns (net, None, delta_flow), as the JAX function (no mask)."""
+        corr = corr.to(net.dtype)
+        flow = flow.to(net.dtype)
+        motion = self.encoder(flow, emap, corr)
+        net = self.gru(net, torch.cat([inp, motion], 1))
+        return net, None, self.flow_head(net)
 
 
 class LiteUpdateBlock(nn.Module):

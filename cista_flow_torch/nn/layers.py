@@ -18,7 +18,8 @@ _ACTS = {None: lambda x: x, "relu": torch.relu, "sigmoid": torch.sigmoid,
          "tanh": torch.tanh}
 
 __all__ = ["softshrink", "ConvLayer", "UpsampleConvLayer", "ConvLSTC",
-           "ConvLSTM", "IstaBlock", "RecurrentConvLayer"]
+           "ConvLSTM", "IstaBlock", "RecurrentConvLayer", "doubletanh",
+           "RecurrentUpsampleConvLayer", "DecayGates", "NeuronLSTC"]
 
 
 def _conv(m: nn.Conv2d, x, stride=1, padding=0, activation=None):
@@ -119,9 +120,78 @@ class IstaBlock(nn.Module):
 
 
 class RecurrentConvLayer(nn.Module):
-    """ConvLayer -> ConvLSTM (ref: base_layers.py:216-227); the Dg stage."""
+    """ConvLayer -> ConvLSTM (ref: base_layers.py:216-227); CISTA-LSTC's
+    Dg stage, whose model runs the two parts itself. ``forward`` is the JAX
+    package's ``recurrent_conv_layer``."""
 
     def __init__(self, cin, cout, activation="relu"):
         super().__init__()
         self.conv = ConvLayer(cin, cout, activation=activation)
         self.recurrent_block = ConvLSTM(cout, cout)
+
+    def forward(self, x, state):
+        """state = (hidden, cell) -> (hidden, (hidden, cell))."""
+        hidden, cell = self.recurrent_block(self.conv(x), state)
+        return hidden, (hidden, cell)
+
+
+# ---- the reference's variants, defined there and unused by its shipped
+# ---- models (ref: base_layers.py:14-15, 230-358)
+
+def doubletanh(x, u, lambd):
+    """The alternative proximal op u * (tanh(x + l) + tanh(x - l)) (ref:
+    base_layers.py:14-15)."""
+    return u * (torch.tanh(x + lambd) + torch.tanh(x - lambd))
+
+
+class RecurrentUpsampleConvLayer(nn.Module):
+    """UpsampleConvLayer -> ConvLSTM (ref: base_layers.py:230-240); module
+    names as ``RecurrentConvLayer``'s."""
+
+    def __init__(self, cin, cout, activation=None):
+        super().__init__()
+        self.conv = UpsampleConvLayer(cin, cout, activation=activation)
+        self.recurrent_block = ConvLSTM(cout, cout)
+
+    def forward(self, x, state):
+        """state = (hidden, cell) at twice x's size -> (hidden, (hidden, cell))."""
+        hidden, cell = self.recurrent_block(self.conv(x), state)
+        return hidden, (hidden, cell)
+
+
+class DecayGates(nn.Module):
+    """'get_decay_simmp', the mixed max/avg-pool gating MLP (ref:
+    base_layers.py:243-281, its 'mix' configuration). ``forward(x)``:
+    fc2(relu(fc1(max over the frame of x))); ``forward(x, x1)``:
+    fc2(relu(fc3([max of x1, mean of x]))), hidden widths a quarter of the
+    inputs' (the reference's reduction 4). Returns (B, num_gates)."""
+
+    def __init__(self, channels1, channels2, num_gates=3):
+        super().__init__()
+        self.fc1 = nn.Linear(channels1, channels1 // 4)
+        self.fc2 = nn.Linear(channels2 // 4, num_gates)
+        self.fc3 = nn.Linear(channels1 + channels2, channels2 // 4)
+
+    def forward(self, x, x1=None):
+        if x1 is None:
+            return self.fc2(torch.relu(self.fc1(x.amax(dim=(2, 3)))))
+        theta = torch.cat([x1.amax(dim=(2, 3)), x.mean(dim=(2, 3))], 1)
+        return self.fc2(torch.relu(self.fc3(theta)))
+
+
+class NeuronLSTC(nn.Module):
+    """The NeuronLSTC variant (ref: base_layers.py:283-321): input, forget
+    and output gates, one scalar each per sample, from ``DecayGates`` over
+    the input and its 1x1 conv, instead of gate convs."""
+
+    def __init__(self, x_size, output_size):
+        super().__init__()
+        self.P0 = ConvLayer(x_size, output_size)
+        self.conv1x1 = ConvLayer(x_size, 3 * output_size, 1, padding=0)
+        self.gates = DecayGates(x_size, 3 * output_size, 3)
+
+    def forward(self, x, prev_z0):
+        g = torch.sigmoid(self.gates(x, self.conv1x1(x)))[:, :, None, None]
+        in_g, forget_g, out_g = g[:, 0:1], g[:, 1:2], g[:, 2:3]
+        z0 = forget_g * prev_z0 + in_g * self.P0(x)
+        return out_g * torch.tanh(z0)

@@ -3,13 +3,15 @@
 Counterpart of cista_flow_tpu/ops/corr.py (ref:
 DCEIFlow/core/corr/raft_corr.py:15-65). ``lookup_corr`` here is the plain
 gather formulation; on the card the lookup runs as kernel K1
-(ops/cuda_corr.py).
+(ops/cuda_corr.py). ``EfficientCorr`` is the reference's on-the-fly
+variant (plain PyTorch: the JAX function reaches no Pallas kernel).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from .autograd import at_least_f32
 from .pool import avg_pool2
@@ -81,6 +83,57 @@ def lookup_corr(pyr: CorrPyramid, coords: torch.Tensor,
         out.append(win.reshape(n, k * k))
     win = torch.cat(out, dim=1).reshape(b, h1, w1, -1).permute(0, 3, 1, 2)
     return win.contiguous().to(pyr.levels[0].dtype)
+
+
+class EfficientCorr(NamedTuple):
+    """The on-the-fly correlation: the feature pyramid of ``fmap2`` instead
+    of the (H1*W1) x (H2*W2) volume (ref: DCEIFlow/core/corr/raft_corr.py:
+    121-172; the JAX package's ``EfficientCorr``), O(B*H*W*D*levels) memory
+    instead of O(B*(H*W)^2). Both maps in f32."""
+    fmap1: torch.Tensor         # (B, D, H, W)
+    fmap2_levels: tuple         # each (B, D, h_l, w_l)
+
+
+def build_efficient_corr(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                         num_levels: int = 4) -> EfficientCorr:
+    levels = [fmap2.float()]
+    for _ in range(num_levels - 1):
+        levels.append(avg_pool2(levels[-1]))
+    return EfficientCorr(fmap1.float(), tuple(levels))
+
+
+def lookup_efficient_corr(ec: EfficientCorr, coords: torch.Tensor,
+                          radius: int = 4) -> torch.Tensor:
+    """Sample ``fmap2``'s (2r+1)^2 window at each level and contract it
+    with ``fmap1`` on the fly: ``lookup_corr`` over the materialised
+    volume, in the same window order (level-major, then x-offset-major)
+    and normalisation (1/sqrt(D)), in f32. coords: (B, 2, H1, W1) level-0
+    pixel coords (x, y); returns (B, levels*(2r+1)^2, H1, W1).
+
+    Each level is sampled by ``F.grid_sample`` at RAFT's convention
+    (align_corners=True, zeros outside); a level under 2 pixels on a side
+    is first zero-padded to 2, which leaves zeros-outside sampling as it
+    was and keeps the normalisation's 2 / (size - 1) finite."""
+    b, d, h1, w1 = ec.fmap1.shape
+    k = 2 * radius + 1
+    offs = torch.arange(-radius, radius + 1, dtype=torch.float32, device=coords.device)
+    dx = offs[:, None].expand(k, k).reshape(-1)          # x-offset-major
+    dy = offs[None, :].expand(k, k).reshape(-1)
+    cx, cy = coords[:, 0].float(), coords[:, 1].float()
+    out = []
+    for i, level in enumerate(ec.fmap2_levels):
+        hl, wl = level.shape[2:]
+        level = F.pad(level, (0, max(0, 2 - wl), 0, max(0, 2 - hl)))
+        hp, wp = level.shape[2:]
+        px = (cx / (2.0 ** i))[..., None] + dx              # (B, H1, W1, K)
+        py = (cy / (2.0 ** i))[..., None] + dy
+        grid = torch.stack([2.0 * px / (wp - 1) - 1.0, 2.0 * py / (hp - 1) - 1.0], -1)
+        sampled = F.grid_sample(level, grid.reshape(b, h1, w1 * k * k, 2), mode="bilinear",
+                                padding_mode="zeros", align_corners=True)
+        sampled = sampled.reshape(b, d, h1, w1, k * k)
+        corr = torch.einsum("bdhw,bdhwk->bkhw", ec.fmap1, sampled)
+        out.append(corr / (float(d) ** 0.5))
+    return torch.cat(out, dim=1)
 
 
 def coords_grid(batch: int, h: int, w: int, device=None, row0: int = 0) -> torch.Tensor:

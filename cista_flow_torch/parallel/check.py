@@ -1,5 +1,5 @@
-"""Data-parallel training, row-sharded serving and row-sharded training held
-against one process:
+"""Data-parallel training, row-sharded serving (the MVSEC eval too) and
+row-sharded training held against one process:
 the functions each rank of
 ``mesh.launch`` runs for the tests and ``chip_smoke.py`` (a spawned rank
 imports its function by name, and spawn re-imports ``__main__``, so they
@@ -260,6 +260,39 @@ def spatial_rank(mesh: data_mesh.DataMesh, jobs: list, out_dir: str) -> None:
         if not job.get("follow"):
             recon.close()
         results.append(res)
+    _save(mesh, out_dir, results)
+
+
+def mvsec_rank(mesh: data_mesh.DataMesh, jobs: list, out_dir: str) -> None:
+    """Per job (``cfg``): ``test_mvsec.evaluate`` as ``spatial.serve`` runs
+    it for ``test_mvsec --mesh_shape N --mesh_axes spatial``: a row-sharded
+    ``Reconstructor`` on every rank, rank 0 reading, scoring and writing,
+    the others following it. Rank 0 keeps ``(rows, keys, mean)`` and the
+    windows served, every rank its kernel launches and the bytes it sent,
+    per kind. Saves the results in job order."""
+    from .. import test_mvsec
+    from ..ops.cuda_build import kernel_counters
+    from ..runner import Reconstructor
+    from ..timing import HostSplit
+    from . import spatial
+    counters = kernel_counters()
+    results = []
+    for job in jobs:
+        recon = Reconstructor(job["cfg"], batch=1, mesh=spatial.RowMesh.of(mesh))
+        for k in counters.values():
+            k.launches = 0
+        out, windows = None, None
+        if mesh.is_main:
+            split = HostSplit()
+            try:
+                out = test_mvsec.evaluate(job["cfg"], split=split, recon=recon)
+            finally:
+                recon.close()
+            windows = split.windows
+        else:
+            recon.follow()
+        results.append({"out": out, "windows": windows, "sent": dict(recon.band.sent),
+                        "launches": {k: c.launches for k, c in counters.items()}})
     _save(mesh, out_dir, results)
 
 

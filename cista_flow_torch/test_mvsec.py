@@ -4,7 +4,7 @@ recordings.
     python -m cista_flow_torch.test_mvsec --model_mode cista-eiflow \\
         --path_to_test_data DATA --image_dim 260 346 --num_events 15000 \\
         --path_to_test_model M.npz [--test_data_name indoor_flying1] \\
-        [--dtype bfloat16] [--device cpu]
+        [--dtype bfloat16] [--device cpu] [--mesh_shape 2 --mesh_axes spatial]
 
 Counterpart of the root ``test_mvsec.py`` of the JAX package (ref:
 test_mvsec.py:33-157), with the same flags (``config.add_args``): every
@@ -25,7 +25,11 @@ quirks are fixed as it fixes them (its docstring: the GT frame is
 
 The model runs on the card unless ``--device cpu`` is given (f32 with
 cuDNN's TF32 off, as the runner runs every f32 call); the metrics run on
-the CPU in f32 on the host copies of the outputs.
+the CPU in f32 on the host copies of the outputs. ``--mesh_shape N
+--mesh_axes spatial`` serves each recording's rows over N ranks, as the
+other serving CLIs do (``parallel.spatial.serve``: rank 0 reads, scores
+and writes; 260x346 is cut at multiples of 8 rows of the flow net's
+288x352 padded frame).
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from . import config
 from .data.io import EvalWriter, FlowWriter, ImageWriter
 from .data.mvsec import MVSEC_NE, VALID_TIME_INDEX
 from .losses import fwl_metric, lpips, recon_evaluate
+from .parallel import spatial
 from .runner import Reconstructor
 from .test_with_flow import SKIP_FRAMES, finish, host_tensor, summarize
 from .timing import HostSplit
@@ -136,8 +141,14 @@ def evaluate(cfg, dataset_factory=None, device=None, split: HostSplit | None = N
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="MVSEC eval of the PyTorch port")
     config.add_args(parser)
+    config.add_mesh_args(parser)
     args = parser.parse_args(argv)
-    evaluate(config.from_args(args), device=args.device)
+    cfg = config.from_args(args)
+    world = spatial.serving_ranks(parser, cfg)
+    if world is None:
+        evaluate(cfg, device=args.device)
+    else:
+        spatial.serve(world, args.device, "cista_flow_torch.test_mvsec", "evaluate", cfg)
     return 0
 
 

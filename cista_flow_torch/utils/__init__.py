@@ -1,3 +1,5 @@
-from .image import normalize_image
+from .image import (CropParameters, InputPadder, forward_interpolate, normalize_image,
+                    optimal_crop_size, setup_seed)
 
-__all__ = ["normalize_image"]
+__all__ = ["CropParameters", "InputPadder", "forward_interpolate", "normalize_image",
+           "optimal_crop_size", "setup_seed"]

@@ -1,17 +1,50 @@
-"""``StepTimer``: host-side wall time per step, with percentile summaries.
+"""Profiling: ``trace``, ``annotate`` and ``StepTimer``.
 
-Counterpart of cista_flow_tpu/utils/profiling.py:35-82 (the same warmup
-and summary fields; its ``trace`` and ``annotate`` are ``torch.profiler``'s
-own here). ``stop(result)`` waits for the result's device first
-(``torch.cuda.synchronize`` where a CUDA tensor is in it; the JAX package
-calls ``block_until_ready``), so a step's time includes its device work.
+Counterpart of cista_flow_tpu/utils/profiling.py:
+* ``trace(logdir)``: a ``torch.profiler`` capture of the host and, where
+  there is a card, the device, written as a chrome trace
+  (``<logdir>/trace_<ns>.pt.trace.json``) that ``utils/trace_tools.py``
+  reads; ``with trace('build/tb'): run_steps()``.
+* ``annotate(name)``: a named region in that trace (``record_function``).
+* ``StepTimer``: host-side wall time per step, with the JAX class's warmup
+  and summary fields. ``stop(result)`` waits for the result's device first
+  (``torch.cuda.synchronize`` where a CUDA tensor is in it; the JAX
+  package calls ``block_until_ready``), so a step's time includes its
+  device work.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Capture the block's host operations and device kernels; the chrome
+    trace is written to ``logdir`` when the block ends. Yields the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    try:
+        yield prof
+    finally:
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(os.path.join(logdir, f"trace_{time.time_ns()}.pt.trace.json"))
+
+
+def annotate(name: str):
+    """A named region of the trace: ``with annotate('flow_net'): ...``."""
+    return torch.profiler.record_function(name)
 
 
 def _cuda_devices(result) -> set:

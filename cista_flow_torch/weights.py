@@ -8,7 +8,11 @@ convs) into the same key layout, so both packages can compute with one set
 of weights (it maps a gradient tree the same way); ``flow_net_from_jax``
 does so for a flow net's tree alone. ``save_checkpoint``
 writes a model in the reference's ``{'epoch', 'state_dict'}`` ``.pth.tar``
-layout, the trainer's checkpoints.
+layout, the trainer's checkpoints. ``small_encoder_from_jax``,
+``small_update_block_from_jax``, ``recurrent_layer_from_jax``,
+``decay_gates_from_jax`` and ``neuron_lstc_from_jax`` carry the trees of
+the JAX package's library blocks (SmallEncoder, the small update block,
+the cell variants) into the port's modules' state dicts.
 """
 from __future__ import annotations
 
@@ -203,4 +207,71 @@ def flow_net_from_jax(f: dict, s: dict, pre: str = "") -> dict:
         _conv(out, f"{pre}update_block.gru.{name}", u["gru"][name])
     for name in ("conv1", "conv2"):
         _conv(out, f"{pre}update_block.flow_head.{name}", u["flow_head"][name])
+    return out
+
+
+# ------------------ the library surface's trees -> state dicts ----------------
+
+def small_encoder_from_jax(p: dict, s: dict, norm_fn: str, pre: str = "") -> dict:
+    """``small_encoder_init``'s (params, state) -> ``nn.encoders.SmallEncoder``'s
+    keys: the bottleneck blocks ``layer{i}.{0,1}``, BatchNorm's statistics
+    where ``norm_fn`` is 'batch' (``norm4`` also as ``downsample.1``)."""
+    out = {}
+    batch = norm_fn == "batch"
+    _conv(out, pre + "conv1", p["conv1"])
+    if batch:
+        _bn(out, pre + "norm1", p["norm1"], s["norm1"])
+    for i in (1, 2, 3):
+        for j, suf in ((0, "a"), (1, "b")):
+            bp, bs, bpre = p[f"layer{i}{suf}"], s.get(f"layer{i}{suf}", {}), f"{pre}layer{i}.{j}."
+            for name in ("conv1", "conv2", "conv3"):
+                _conv(out, bpre + name, bp[name])
+            if batch:
+                for name in ("norm1", "norm2", "norm3"):
+                    _bn(out, bpre + name, bp[name], bs[name])
+            if "down" in bp:
+                _conv(out, bpre + "downsample.0", bp["down"])
+                if batch:
+                    _bn(out, bpre + "downsample.1", bp["norm4"], bs["norm4"])
+                    _bn(out, bpre + "norm4", bp["norm4"], bs["norm4"])
+    _conv(out, pre + "conv2", p["conv2"])
+    return out
+
+
+def small_update_block_from_jax(p: dict, pre: str = "") -> dict:
+    """``small_update_block_init``'s params -> ``nn.gru.SmallUpdateBlock``'s keys."""
+    out = {}
+    for name, q in p["encoder"].items():
+        _conv(out, f"{pre}encoder.{name}", q)
+    for name in ("convz", "convr", "convq"):
+        _conv(out, f"{pre}gru.{name}", p["gru"][name])
+    for name in ("conv1", "conv2"):
+        _conv(out, f"{pre}flow_head.{name}", p["flow_head"][name])
+    return out
+
+
+def recurrent_layer_from_jax(p: dict, pre: str = "") -> dict:
+    """``recurrent_conv_layer_init``'s or ``recurrent_upsample_conv_layer_init``'s
+    params -> ``RecurrentConvLayer``'s or ``RecurrentUpsampleConvLayer``'s keys."""
+    out = {}
+    _conv(out, pre + "conv.conv2d", p["conv"])
+    _conv(out, pre + "recurrent_block.Gates", p["lstm"]["gates"])
+    return out
+
+
+def decay_gates_from_jax(p: dict, pre: str = "") -> dict:
+    """``decay_gates_init``'s params -> ``DecayGates``'s ``nn.Linear`` keys
+    (the JAX (cin, cout) weight transposed)."""
+    out = {}
+    for name in ("fc1", "fc2", "fc3"):
+        out[f"{pre}{name}.weight"] = np.ascontiguousarray(np.asarray(p[name]["w"], np.float32).T)
+        out[f"{pre}{name}.bias"] = np.asarray(p[name]["b"], np.float32)
+    return out
+
+
+def neuron_lstc_from_jax(p: dict, pre: str = "") -> dict:
+    """``neuron_lstc_init``'s params -> ``NeuronLSTC``'s keys."""
+    out = decay_gates_from_jax(p["gates"], pre + "gates.")
+    _conv(out, pre + "P0.conv2d", p["P0"])
+    _conv(out, pre + "conv1x1.conv2d", p["conv1x1"])
     return out

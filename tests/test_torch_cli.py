@@ -5,11 +5,11 @@ Each case runs ``cista_flow_torch.<cli>`` with ``device='cpu'`` and the
 root ``<cli>.py`` of the JAX package at the same flags, on the same data
 and the same reference-layout checkpoint: a JAX ``composite.init`` at width
 16, depth 1, written with ``ti.save_torch_checkpoint`` and served with
-``flow_iters`` 1. The JAX side voxelizes with its numpy golden (not the
-native library, which is within 1e-6 of it), so both sides see the same
-voxels. Held: the ``all.csv`` rows equal to 4 decimals (the CSVs' text),
-every written PNG equal after decoding, the output trees' relative paths
-equal. Flow pictures are held loosely: the two packages' flows differ by
+``flow_iters`` 1. Both sides voxelize on their default path, each
+package's host event library built from the same source, so both see the
+same voxels bit for bit. Held: the ``all.csv`` rows equal to 4 decimals
+(the CSVs' text), every written PNG equal after decoding, the output
+trees' relative paths equal. Flow pictures are held loosely: the two packages' flows differ by
 f32 rounding (about 1e-5 px), which moves a hue or value bin where a pixel
 sits on its edge, so a flow picture is held to within 9 levels on every
 pixel and equal on at least 90% of them.
@@ -34,11 +34,11 @@ import pytest
 
 from cista_flow_tpu.ckpt import torch_import as ti
 from cista_flow_tpu.configs import Config as JConfig
-from cista_flow_tpu.events import voxel as JV
 from cista_flow_tpu.models import composite as JCOMP
 from cista_flow_torch import test_noeval, test_with_flow, test_wo_flow
 from cista_flow_torch.config import Config
 from cista_flow_torch.data import sim
+from test_torch_surface import jax_native_library
 
 REPO = Path(__file__).resolve().parent.parent
 H, W = 48, 64
@@ -130,11 +130,10 @@ def ecd(work):
 
 
 @pytest.mark.parametrize("mode", ["upsampled", pytest.param("real", marks=pytest.mark.slow)])
-def test_wo_flow_ecd_zip_matches_jax(work, ecd, tmp_path, monkeypatch, mode):
+def test_wo_flow_ecd_zip_matches_jax(work, ecd, tmp_path, mode):
     """ECD normalisation, FWL, event previews and flow pictures; windows of
     about 2000 events in 'upsampled' mode (one voxel each) and in 'real'
     mode (round(n / 2000) voxels of a window)."""
-    monkeypatch.setattr(JV, "_USE_NATIVE", False)
     kw = dict(COMMON, model_mode="cista-eiflow", path_to_test_data=str(ecd),
               path_to_test_model=checkpoint(work, "cista-eiflow"), dataset="ECD",
               num_events=2000, test_data_mode=mode, is_write_event=True, is_write_flow=True)
@@ -152,7 +151,6 @@ def test_wo_flow_lpips_from_env_matches_jax(work, ecd, tmp_path, monkeypatch):
     """With ``CISTA_LPIPS`` naming a weights file (AlexNet LPIPS from a seed,
     in the JAX npz layout) both CLIs add an 'lpips' column, the same rows."""
     from cista_flow_torch.losses import lpips as TL
-    monkeypatch.setattr(JV, "_USE_NATIVE", False)
     weights = tmp_path / "alex.npz"
     TL.save_npz(TL.init(seed=3), str(weights))
     monkeypatch.setenv("CISTA_LPIPS", str(weights))
@@ -168,10 +166,9 @@ def test_wo_flow_lpips_from_env_matches_jax(work, ecd, tmp_path, monkeypatch):
     assert rows[-1][keys.index("lpips") + 1] > 0
 
 
-def test_with_flow_gt_flow_matches_jax(work, tmp_path, monkeypatch):
+def test_with_flow_gt_flow_matches_jax(work, tmp_path):
     """``--is_gt_flow`` under cista-gtflow: the warps follow the GT flow,
     which is also the flow scored (EPE 0); two sequences, flow pictures."""
-    monkeypatch.setattr(JV, "_USE_NATIVE", False)
     data = work / "wf"
     for s in range(2):
         sim.write_eval_sequence(str(data / f"seq_{s}"), sim.simulate_sequence(11 + s, 8, H, W))
@@ -189,11 +186,10 @@ def test_with_flow_gt_flow_matches_jax(work, tmp_path, monkeypatch):
 
 
 @pytest.mark.slow
-def test_noeval_txt_stream_matches_jax(work, tmp_path, monkeypatch):
+def test_noeval_txt_stream_matches_jax(work, tmp_path):
     """A ``.txt`` stream with its ``W H`` header under cista-idnet: windows
     of 800 events, chunks of 8, every 5th frame written with its event
     preview and flow picture."""
-    monkeypatch.setattr(JV, "_USE_NATIVE", False)
     path = work / "stream.txt"
     write_stream(path, sim.simulate_sequence(31, 8, H, W)["events"], header=True)
     kw = dict(COMMON, model_mode="cista-idnet", path_to_test_data=str(path),
@@ -283,3 +279,10 @@ def test_harness_saves_and_holds_targets(work, ecd, tmp_path):
     assert evaluate.main(flags + ["--harness_tolerance", "0.002"]) == 0
     targets.write_text(json.dumps({**saved, "psnr": saved["psnr"] * 1.01}))
     assert evaluate.main(flags + ["--harness_tolerance", "0.002"]) == 1
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_native():
+    """The JAX package's native event library loaded (its default path,
+    which the port's voxels must equal bit for bit)."""
+    jax_native_library()

@@ -1,7 +1,7 @@
 """The port's host-side data path against the JAX package's, on the CPU: the
 simulator (bit for bit), the PNG codec (against OpenCV, which the port does
-not use), the voxelization (bit for bit the numpy golden; within 1e-6 of
-the dispatching function, which may run the native library) and the
+not use), the voxelization (the numpy versions bit for bit the numpy golden, the
+host event library bit for bit the JAX package's native library) and the
 sequence reader's packs.
 
 The gate data is made once per module with the port's ``ensure_eval_data``
@@ -18,10 +18,13 @@ import pytest
 from cista_flow_tpu.configs import Config as JConfig
 from cista_flow_tpu.data import sim as JSIM
 from cista_flow_tpu.data import video_readers as JVR
+from cista_flow_tpu.events import native as JN
 from cista_flow_tpu.events import voxel as JV
 from cista_flow_torch.config import Config
 from cista_flow_torch.data import png, readers, sim
-from cista_flow_torch.events import event_preprocess, events_to_voxel_grid
+from cista_flow_torch.events import (event_preprocess, event_preprocess_numpy, events_to_voxel_grid,
+                                     events_to_voxel_grid_numpy)
+from test_torch_surface import jax_native_library
 
 H, W = 180, 240
 
@@ -165,29 +168,40 @@ def _windows(gate_dir):
 
 
 def test_voxels_bit_for_bit_on_gate_data(gate_dir):
+    """The port's plain numpy versions against the JAX package's numpy
+    golden, and the host event library's voxel against both, bit for bit."""
     windows = _windows(gate_dir)
     assert len(windows) == 29 + 4 and len(windows[0]) > 10_000
     for ev in windows:
         for reverse in (False, True):
-            ours = events_to_voxel_grid(ev, 5, W, H, is_reverse=reverse)
+            ours = events_to_voxel_grid_numpy(ev, 5, W, H, is_reverse=reverse)
             ref = JV.events_to_voxel_grid_numpy(ev, 5, W, H, is_reverse=reverse)
             assert ours.dtype == ref.dtype == np.float32
             np.testing.assert_array_equal(ours, ref)
+            np.testing.assert_array_equal(events_to_voxel_grid(ev, 5, W, H, is_reverse=reverse),
+                                          ref)
             for hot in (False, True):
-                a = event_preprocess(ours.copy(), filter_hot_pixel=hot)
+                a = event_preprocess_numpy(ours.copy(), filter_hot_pixel=hot)
                 b = JV.event_preprocess_numpy(ref.copy(), filter_hot_pixel=hot)
                 assert a.dtype == b.dtype
                 np.testing.assert_array_equal(a, b)
 
 
 def test_voxels_against_dispatching_functions(gate_dir):
-    """The JAX eval's own functions, which run the native library when it
-    is built: voxels and normalized voxels within 1e-6."""
+    """The JAX eval's own functions, which run its native library by
+    default: the port's host event library gives the same voxels and
+    normalized voxels bit for bit (both built from one source with one set
+    of flags; the JAX package here must have built its library)."""
+    assert JV._USE_NATIVE and JN.get_lib() is not None
     for ev in _windows(gate_dir):
-        ours = events_to_voxel_grid(ev, 5, W, H)
-        np.testing.assert_allclose(ours, JV.events_to_voxel_grid(ev, 5, W, H), rtol=0, atol=1e-6)
-        np.testing.assert_allclose(event_preprocess(ours.copy()),
-                                   JV.event_preprocess(ours.copy()), rtol=0, atol=1e-6)
+        for reverse in (False, True):
+            ours = events_to_voxel_grid(ev, 5, W, H, is_reverse=reverse)
+            theirs = JV.events_to_voxel_grid(ev, 5, W, H, is_reverse=reverse)
+            assert ours.tobytes() == theirs.tobytes()
+            for hot in (False, True):
+                a = event_preprocess(ours.copy(), filter_hot_pixel=hot)
+                b = JV.event_preprocess(ours.copy(), filter_hot_pixel=hot)
+                assert a.dtype == b.dtype == np.float32 and a.tobytes() == b.tobytes()
 
 
 def test_read_timestamps_file(tmp_path):
@@ -203,10 +217,14 @@ def test_read_timestamps_file(tmp_path):
 @pytest.mark.parametrize("native", [False, True])
 @pytest.mark.parametrize("forward", [False, True])
 def test_reader_packs_equal_the_jax_reader(gate_dir, monkeypatch, native, forward):
-    """Every pack of one gate sequence: voxels (bit for bit with the JAX
-    reader on its numpy voxelization; within 1e-6 on the native library),
-    frames and flows bit for bit, and the same end."""
-    monkeypatch.setattr(JV, "_USE_NATIVE", native and JV._USE_NATIVE)
+    """Every pack of one gate sequence: voxels bit for bit with the JAX
+    reader, both on their default path (each package's host event library)
+    or both on their numpy versions; frames and flows bit for bit, and the
+    same end."""
+    if not native:
+        monkeypatch.setattr(JV, "_USE_NATIVE", False)
+        monkeypatch.setattr(readers, "events_to_voxel_grid", events_to_voxel_grid_numpy)
+        monkeypatch.setattr(readers, "event_preprocess", event_preprocess_numpy)
     seq = os.path.join(gate_dir, "sim_01")
     jr = JVR.ImageReader(JConfig(image_dim=(H, W), is_forward_flow=forward))
     tr = readers.ImageReader(Config(image_dim=(H, W), is_forward_flow=forward))
@@ -218,10 +236,17 @@ def test_reader_packs_equal_the_jax_reader(gate_dir, monkeypatch, native, forwar
         jv, jframes, jgt, jflows = jr.update_event_frame_flow_pack("upsampled")
         tv, tframes, tgt, tflows = tr.update_event_frame_flow_pack("upsampled")
         assert len(tv) == len(jv) == 1 and len(tframes) == len(jframes) == 1
-        np.testing.assert_allclose(tv[0], jv[0], rtol=0, atol=1e-6 if native else 0)
+        np.testing.assert_array_equal(tv[0], jv[0])
         np.testing.assert_array_equal(tframes[0], jframes[0])
         np.testing.assert_array_equal(tgt, jgt)
         np.testing.assert_array_equal(tflows[0], jflows[0])
         assert tflows[0].dtype == np.float32 and tgt.dtype == np.float32
         packs += 1
     assert tr.ending and packs == 29
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_native():
+    """The JAX package's native event library loaded (its default path,
+    which the port's voxels must equal bit for bit)."""
+    jax_native_library()

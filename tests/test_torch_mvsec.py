@@ -21,8 +21,8 @@
 - ``python -m cista_flow_torch.evaluate --harness_mode mvsec`` saving and
   holding targets.
 
-The JAX side voxelizes with its numpy golden (not the native library, which
-is within 1e-6 of it), so both sides see the same voxels.
+Both sides voxelize on their default path, each package's host event
+library built from the same source, so both see the same voxels.
 """
 import json
 import types
@@ -36,7 +36,6 @@ import torch
 from cista_flow_tpu.data import mvsec as JM
 from cista_flow_tpu.data import mvsec_utils as JU
 from cista_flow_tpu.data import sim as JSIM
-from cista_flow_tpu.events import voxel as JV
 from cista_flow_torch import evaluate as port_evaluate
 from cista_flow_torch import test_mvsec
 from cista_flow_torch.config import Config
@@ -46,6 +45,7 @@ from cista_flow_torch.data import mvsec_utils as U
 from cista_flow_torch.data import sim
 
 from test_torch_cli import COMMON, H, W, checkpoint, jax_cli, outputs
+from test_torch_surface import jax_native_library
 
 h5py = pytest.importorskip("h5py")
 SPLIT = "indoor_flying4"
@@ -168,8 +168,7 @@ def same_tree(a, b, path="item"):
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
 @pytest.mark.parametrize("mode", ["full", "train", "val"])
-def test_mvsec_ne_items_bit_for_bit(recordings, monkeypatch, writer, mode):
-    monkeypatch.setattr(JV, "_USE_NATIVE", False)
+def test_mvsec_ne_items_bit_for_bit(recordings, writer, mode):
     root = str(recordings[writer])
     a = args()
     jds = JM.MVSEC_NE(a, root, SPLIT, data_mode=mode)
@@ -222,7 +221,7 @@ def cli_cfg(cls, recordings, out, **kw):
     return cfg
 
 
-def test_mvsec_cli_matches_jax(work, recordings, tmp_path, monkeypatch):
+def test_mvsec_cli_matches_jax(work, recordings, tmp_path):
     """Pairs of 584-1034 events at 48x64 in chunks of about 400: 1 to 3
     windows of at least 320 events a pair, each pair ending on a window
     (every item scored); 7 items, the first 3 scored frames skipped. The
@@ -230,7 +229,6 @@ def test_mvsec_cli_matches_jax(work, recordings, tmp_path, monkeypatch):
     by up to ~3e-5 relative (their flows by ~1e-5 px), so another setting
     can put a mean on a rounding edge (at 500 events a window FWL's mean is
     1.0227565 here and 1.0227428 in JAX, 1.0228 against 1.0227)."""
-    monkeypatch.setattr(JV, "_USE_NATIVE", False)
     ck = checkpoint(work, "cista-eiflow")
     from cista_flow_tpu.configs import Config as JConfig
     jrows, jkeys = jax_cli("test_mvsec").evaluate(
@@ -297,6 +295,67 @@ def test_mvsec_main_parses_the_sensor_flag(recordings, tmp_path, monkeypatch):
         == ([str(recordings["port"])], [SPLIT])
 
 
+def small_sensor_flags(monkeypatch, work, recordings, **kw):
+    """``test_mvsec.main``'s flags for the simulated 48x64 sensor, which
+    goes in through ``config.from_args`` (the CLI has no sensor flag)."""
+    from_args = test_mvsec.config.from_args
+
+    def small_sensor(a):
+        cfg = from_args(a)
+        cfg.mvsec_sensor_size = (H, W)
+        return cfg
+
+    monkeypatch.setattr(test_mvsec.config, "from_args", small_sensor)
+    return ["--model_mode", "cista-eiflow", "--image_dim", str(H), str(W), "-d", "1", "-c", "16",
+            "--flow_iters", "1", "--path_to_test_data", str(recordings["port"].parent),
+            "--num_events", "400", "--test_img_num", "7", "--is_write_flow",
+            "--path_to_test_model", checkpoint(work, "cista-eiflow"), "--device", "cpu"]
+
+
+MESH2 = ["--mesh_shape", "2", "--mesh_axes", "spatial"]
+
+
+def test_mvsec_on_two_ranks_writes_one_process_files(work, recordings, tmp_path, monkeypatch):
+    """``test_mvsec --mesh_shape 2 --mesh_axes spatial`` on two gloo ranks
+    (rank 0 reads, scores and writes; each rank a 24-row band of the 48x64
+    frame) against one process: every CSV byte for byte, the pictures as
+    ``assert_same_mvsec_outputs`` holds them."""
+    flags = small_sensor_flags(monkeypatch, work, recordings)
+    for name, extra in (("one", []), ("two", MESH2)):
+        assert test_mvsec.main(flags + ["-o", str(tmp_path / name)] + extra) == 0
+    assert_same_mvsec_outputs(tmp_path / "one", tmp_path / "two")
+
+
+def test_mvsec_mesh_refusals(work, recordings, monkeypatch, capsys):
+    """A data axis and too many ranks for the frame refuse as in the other
+    serving CLIs (``spatial.serving_world``)."""
+    flags = small_sensor_flags(monkeypatch, work, recordings)
+    for extra, message in ((["--mesh_shape", "2"], "replicates the stream"),
+                           (["--mesh_shape", "8", "--mesh_axes", "spatial"],
+                            "ranks for this frame")):
+        with pytest.raises(SystemExit):
+            test_mvsec.main(flags + extra)
+        assert message in capsys.readouterr().err
+
+
+@pytest.mark.slow
+def test_mvsec_two_ranks_against_the_jax_mesh(work, recordings, tmp_path):
+    """The root ``test_mvsec.evaluate`` on the JAX runner's own spatial
+    mesh (2 virtual CPU devices) against the port's two ranks: the rows as
+    text (4 decimals) and every CSV byte for byte, as
+    ``test_mvsec_cli_matches_jax`` holds the unsharded pair."""
+    from cista_flow_tpu.configs import Config as JConfig
+    ck = checkpoint(work, "cista-eiflow")
+    jrows, jkeys = jax_cli("test_mvsec").evaluate(
+        cli_cfg(JConfig, recordings, tmp_path / "jax", path_to_test_model=ck,
+                mesh_shape="2", mesh_axes="spatial"))
+    cfg = cli_cfg(Config, recordings, tmp_path / "port", path_to_test_model=ck,
+                  mesh_shape="2", mesh_axes="spatial")
+    test_mvsec.spatial.serve(2, "cpu", "cista_flow_torch.test_mvsec", "evaluate", cfg)
+    assert jkeys == ["mse", "psnr", "ssim", "FWL"]
+    assert_same_mvsec_outputs(tmp_path / "jax", tmp_path / "port")
+
+
 @pytest.mark.parametrize("mode", ["eval", "train"])
 def test_sim_main_writes_the_jax_files(tmp_path, mode):
     """``python -m cista_flow_torch.data.sim`` against the JAX module's
@@ -320,3 +379,10 @@ def test_sim_main_writes_the_jax_files(tmp_path, mode):
                 assert x[k].dtype == y[k].dtype and x[k].tobytes() == y[k].tobytes(), (rel, k)
         else:
             assert path.read_text() == b[rel].read_text(), rel
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_native():
+    """The JAX package's native event library loaded (its default path,
+    which the port's voxels must equal bit for bit)."""
+    jax_native_library()

@@ -493,7 +493,8 @@ def test_port_imports_no_jax_statically():
         "utils/image", "data/io", "losses/fwl", "ops/voxel", "test_with_flow", "test_wo_flow",
         "test_noeval", "timing", "pretrain_flow", "sim_flow_quality", "models/raft",
         "utils/profiling", "data/hdf5", "data/mvsec", "data/mvsec_utils", "data/file_io",
-        "data/augmentors", "data/flying_chairs2", "test_mvsec")} <= names
+        "data/augmentors", "data/flying_chairs2", "test_mvsec", "events/native", "metrics",
+        "utils/trace_tools")} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -29,7 +29,6 @@ import torch
 from cista_flow_tpu import parallel as JP
 from cista_flow_tpu.configs import Config as JConfig
 from cista_flow_tpu.data import train_loader as JTL
-from cista_flow_tpu.events import voxel as JV
 from cista_flow_tpu.ops import conv as JC
 from cista_flow_torch import ckpt, train, weights
 from cista_flow_torch.config import Config
@@ -42,6 +41,7 @@ from cista_flow_torch.parallel import check
 from cista_flow_torch.parallel import train_step as TS
 from test_torch_train_step import (PHASES, SMALL, _port, check_step, grads_of, np_tree,  # noqa: F401
                                    seq, small, state_of)
+from test_torch_surface import jax_native_library
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -78,13 +78,12 @@ def shard_data(tmp_path_factory):
 
 
 @pytest.mark.parametrize("hosts,cards", [(1, 2), (2, 1), (2, 2)])
-def test_loader_shard_matches_jax(shard_data, monkeypatch, hosts, cards):
+def test_loader_shard_matches_jax(shard_data, hosts, cards):
     """Host h's batches are JAX's ``StackedSequenceLoader(process_index=h,
     process_count=hosts)``'s (the host batch is 2 x cards sequences), cut to
     the common batch count; rank (h, l) yields the slice of each that
     ``shard_seq_batch`` puts on the host's l-th device, and the ranks'
     slices in rank order are the hosts' batches in host order."""
-    monkeypatch.setattr(JV, "_USE_NATIVE", False)
     jds, tds = shard_data
     batch = 2 * cards
     mesh = JP.make_mesh((cards,), ("data",))
@@ -565,3 +564,10 @@ def test_train_cli_refuses_other_meshes(tmp_path, capsys, flags, message):
     assert message in capsys.readouterr().err
     from cista_flow_torch import config
     assert not set(config.MESH_FLAGS) & set(config.TPU_ONLY_FLAGS)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_native():
+    """The JAX package's native event library loaded (its default path,
+    which the port's voxels must equal bit for bit)."""
+    jax_native_library()

@@ -23,7 +23,6 @@ from cista_flow_tpu import parallel as JP
 from cista_flow_tpu.ckpt import torch_import as ti
 from cista_flow_tpu.configs import Config as JConfig
 from cista_flow_tpu.data.sim import SimFlowPairs as JSimFlowPairs
-from cista_flow_tpu.events import voxel as JV
 from cista_flow_tpu.models import dceiflow as JD
 from cista_flow_tpu.models import eraft as JE
 from cista_flow_tpu.models import raft as JR
@@ -33,6 +32,7 @@ from cista_flow_torch import weights
 from cista_flow_torch.config import Config
 from cista_flow_torch.data.sim import SimFlowPairs, write_train_dataset
 from cista_flow_torch.losses.flow import flow_sequence_loss
+from test_torch_surface import jax_native_library
 
 H, W = 32, 64
 LR = 2e-4
@@ -88,14 +88,12 @@ def port_net(arch, cfg, params, state):
 @pytest.mark.parametrize("aug", [False, True])
 @pytest.mark.parametrize("mode,bi", [("cista-eiflow", False), ("cista-eiflow", True),
                                      ("cista-eraft", False)])
-def test_sim_flow_pairs_bit_for_bit(root, monkeypatch, mode, bi, aug):
+def test_sim_flow_pairs_bit_for_bit(root, mode, bi, aug):
     """Every item, every key, bit for bit the JAX class's (with ``is_bi``
     and reversed events: the backward flow and the reversed voxel;
     cista-eraft: the previous voxel), and with ``aug`` the same flips in
-    the same draw order. The JAX loader voxelizes through its numpy golden
-    here, which the port copies (its native route agrees to 1e-6,
-    tests/test_torch_data.py)."""
-    monkeypatch.setattr(JV, "_USE_NATIVE", False)
+    the same draw order. Both loaders voxelize on their default path, each
+    package's host event library."""
     jcfg, cfg = configs(root, mode, is_bi=bi, is_reverse_events=bi)
     ours, theirs = SimFlowPairs(cfg, aug=aug), JSimFlowPairs(jcfg, aug=aug)
     assert len(ours) == len(theirs) == 6
@@ -111,11 +109,10 @@ def test_sim_flow_pairs_bit_for_bit(root, monkeypatch, mode, bi, aug):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def test_make_batches_equal_the_jax_batches(root, monkeypatch):
+def test_make_batches_equal_the_jax_batches(root):
     """Shuffled from the same seed, the last partial batch dropped: the JAX
-    function's batches (NHWC there, NCHW here), bit for bit (the JAX
-    voxels from their numpy golden)."""
-    monkeypatch.setattr(JV, "_USE_NATIVE", False)
+    function's batches (NHWC there, NCHW here), bit for bit (both
+    packages' voxels from their host event library)."""
     jcfg, cfg = configs(root)
     ours = list(pf.make_batches(SimFlowPairs(cfg, aug=True), 4, True,
                                 np.random.default_rng(5)))
@@ -520,3 +517,10 @@ def test_step_timer_matches_the_jax_timer():
     ours.times = list(theirs.times)
     assert ours.summary() == theirs.summary()
     assert str(ours) == str(theirs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_native():
+    """The JAX package's native event library loaded (its default path,
+    which the port's voxels must equal bit for bit)."""
+    jax_native_library()

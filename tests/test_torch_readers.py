@@ -8,7 +8,8 @@ it) and none for ``RefTimeEventReaderZip`` (ECD's layout; the JAX reader
 refuses a header line), zipped for ``.zip``. The JAX readers parse with
 pandas' C parser, the port's with ``np.loadtxt``; on these files every
 timestamp is the same float64, so every window is compared with
-``assert_array_equal``. The JAX side voxelizes with its numpy golden.
+``assert_array_equal``. Both sides voxelize on their default path, each
+package's host event library.
 """
 import os
 import zipfile
@@ -19,9 +20,9 @@ import pytest
 from cista_flow_tpu.configs import Config as JConfig
 from cista_flow_tpu.data import event_readers as JER
 from cista_flow_tpu.data import video_readers as JVR
-from cista_flow_tpu.events import voxel as JV
 from cista_flow_torch.config import Config
 from cista_flow_torch.data import png, readers, sim
+from test_torch_surface import jax_native_library
 
 H, W = 48, 64
 
@@ -108,12 +109,11 @@ def make_sequence(root, sequence, single_file: bool) -> str:
     ("update_event_frame_pack_fix", "real", -1),
     ("update_event_frame_flow_pack", "upsampled", None),
 ])
-def test_image_reader_packs_match_jax(tmp_path, sequence, monkeypatch, single_file, pack, mode,
+def test_image_reader_packs_match_jax(tmp_path, sequence, single_file, pack, mode,
                                       limit):
     """Every pack of a sequence until the reader ends: voxels (one, or
     ``round(n / limit)`` in 'real' mode, hot pixels filtered), the frame
     pack, the GT frame (and the GT flows) bit for bit, and the same end."""
-    monkeypatch.setattr(JV, "_USE_NATIVE", False)
     seq = make_sequence(str(tmp_path), sequence, single_file)
     jr = JVR.ImageReader(JConfig(image_dim=(H, W)))
     tr = readers.ImageReader(Config(image_dim=(H, W)))
@@ -141,10 +141,9 @@ def test_image_reader_packs_match_jax(tmp_path, sequence, monkeypatch, single_fi
         assert voxels > packs                                # several voxels a pack
 
 
-def test_events_outside_the_frame_are_dropped(tmp_path, sequence, monkeypatch):
+def test_events_outside_the_frame_are_dropped(tmp_path, sequence):
     """``update_event_frame_pack_fix`` keeps x < W and y < H: a stream
     recorded at a larger size read at the frame's, as the JAX reader."""
-    monkeypatch.setattr(JV, "_USE_NATIVE", False)
     seq = make_sequence(str(tmp_path), sequence, True)
     ev = all_events(sequence)
     rng = np.random.default_rng(3)
@@ -180,3 +179,10 @@ def test_zip_stream_with_several_members_raises(tmp_path):
         z.writestr("b.txt", "0 0\n")
     with pytest.raises(ValueError, match="one file"):
         readers.FixedSizeEventReader(str(path), 10)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_native():
+    """The JAX package's native event library loaded (its default path,
+    which the port's voxels must equal bit for bit)."""
+    jax_native_library()

@@ -4,9 +4,9 @@ training layout (``write_train_dataset``) and the loader over it
 layout (the port is NCHW and writes PNGs with its own codec, the JAX
 package NHWC through OpenCV).
 
-The JAX loader voxelizes through its native library where that is built;
-here it runs its numpy golden, which the port copies, so the voxels must be
-equal bit for bit (tests/test_torch_data.py holds the native route at 1e-6).
+Both loaders voxelize on their default path, each package's host event
+library built from the same source, so the voxels must be equal bit for
+bit.
 """
 import os
 
@@ -16,11 +16,11 @@ import pytest
 from cista_flow_tpu.configs import Config as JConfig
 from cista_flow_tpu.data import sim as JSIM
 from cista_flow_tpu.data import train_loader as JTL
-from cista_flow_tpu.events import voxel as JV
 from cista_flow_torch.config import Config
 from cista_flow_torch.data import sim as TSIM
 from cista_flow_torch.data import train_loader as TTL
 from cista_flow_torch.data.png import read_png
+from test_torch_surface import jax_native_library
 
 H, W = 36, 48
 VIDEOS, FRAMES = 2, 6
@@ -79,8 +79,7 @@ CASES = {"by_video": dict(len_sequence=3),
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_loader_matches_jax(datasets, monkeypatch, case):
-    monkeypatch.setattr(JV, "_USE_NATIVE", False)
+def test_loader_matches_jax(datasets, case):
     idx = datasets[0]
     jcfg, tcfg = _cfgs(os.path.dirname(idx), **CASES[case])
     jds, tds = JTL.TrainSequenceDataset(idx, jcfg), TTL.TrainSequenceDataset(idx, tcfg)
@@ -111,13 +110,12 @@ def test_loader_matches_jax(datasets, monkeypatch, case):
             np.testing.assert_array_equal(t[k], _nchw(j[k]))
 
 
-def test_eraft_training_data_is_refused(datasets, monkeypatch):
+def test_eraft_training_data_is_refused(datasets):
     """Once refused, cista-eraft's training data now loads: each step's
     ``event_voxel_old`` is zeros at a video's first frame (the first line,
     or an events file whose frame index is 0) and the previous line's
     window voxelized elsewhere, bit for bit the JAX loader's
     (cista_flow_tpu/data/train_loader.py:148-157)."""
-    monkeypatch.setattr(JV, "_USE_NATIVE", False)
     idx = datasets[1]
     jcfg, tcfg = _cfgs(os.path.dirname(idx), len_sequence=3, model_mode="cista-eraft")
     jds, tds = JTL.TrainSequenceDataset(idx, jcfg), TTL.TrainSequenceDataset(idx, tcfg)
@@ -133,3 +131,10 @@ def test_eraft_training_data_is_refused(datasets, monkeypatch):
                                           tds.get_step(line - 1)[0]["event_voxel"])
             assert td["event_voxel_old"].any()
     assert firsts == VIDEOS
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_native():
+    """The JAX package's native event library loaded (its default path,
+    which the port's voxels must equal bit for bit)."""
+    jax_native_library()
