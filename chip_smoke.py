@@ -203,7 +203,13 @@ Phases (any failure raises and the exit code is non-zero):
     ``MVSEC_BF16_DEV`` of f32, each rank's launches); (c) ``SmallEncoder``,
     ``SmallUpdateBlock``, ``lookup_efficient_corr`` (also against K1's
     lookup of the materialised pyramid) and the cell variants on the card
-    in f32 and bf16 against the CPU.
+    in f32 and bf16 against the CPU; (d) ``BasicEncoder`` and
+    ``SmallEncoder`` with group norm at 180x240, batch 8, f32 and bf16
+    against the CPU, K5's launches, event ms a call; (e) the trainer's
+    command line with no ``--model_mode`` (``cista-lstc``),
+    ``--is_SummaryWriter`` and ``--no_shuffle`` for one epoch of a tiny
+    simulated set: its checkpoint, its TensorBoard log directory (or, where
+    tensorboard is missing, the message saying so), K3 and K5.
     ``--train-only`` runs the build, the kernel checks and phases 9 to 12;
     ``--dp-only`` the build and phase 12; ``--spatial-only`` the build,
     phase 13's kernel checks and phase 13, ``--spatial-cards`` the build
@@ -1190,7 +1196,7 @@ def f32_at_default_flags(torch, repo: Path, counters: dict) -> dict:
     from cista_flow_torch.runner import Reconstructor
 
     iters, depth, path = POINTS[1]
-    cfg = Config(image_dim=(H, W), depth=depth, flow_iters=iters,
+    cfg = Config(model_mode="cista-eiflow", image_dim=(H, W), depth=depth, flow_iters=iters,
                  path_to_test_model=str(repo / path))
     before = tf32_flags(torch)
     print(f"f32 at the process's TF32 defaults ({before}): cista-eiflow ({iters},{depth}), "
@@ -1486,11 +1492,13 @@ def serving_clis(torch, repo: Path, counters: dict) -> dict:
 
     # new shapes, against the plain path on the CPU (phase 4's 1e-3)
     flagship = str(repo / "gate" / "flagship_sim40_f16.npz")
-    cfg = Config(image_dim=SAMSUNG, depth=5, flow_iters=6, path_to_test_model=flagship,
+    cfg = Config(model_mode="cista-eiflow",
+                 image_dim=SAMSUNG, depth=5, flow_iters=6, path_to_test_model=flagship,
                  dvs="samsung", num_events=CLI_EVENTS)
     windows = list(FixedSizeEventReader(str(data["samsung"]), CLI_EVENTS))[:2]
     vox = np.stack([test_noeval.voxelize(w, cfg) for w in windows])
-    flow_half = Config(image_dim=(H, W), depth=5, flow_iters=6, path_to_test_model=flagship,
+    flow_half = Config(model_mode="cista-eiflow",
+                       image_dim=(H, W), depth=5, flow_iters=6, path_to_test_model=flagship,
                        flow_half=True)
     for tag, c, ev in ((f"test_noeval --dvs samsung voxels {SAMSUNG[0]}x{SAMSUNG[1]}", cfg, vox),
                        ("flow_half window (6,5)", flow_half, voxels(7, 2))):
@@ -1736,7 +1744,7 @@ def card_against_cpu(torch, repo: Path, counters: dict) -> dict:
     from cista_flow_torch.parallel import train_step as TS
 
     total = {k: 0 for k in counters}
-    cfg = Config(image_dim=(H, W), depth=1, flow_iters=1)
+    cfg = Config(model_mode="cista-eiflow", image_dim=(H, W), depth=1, flow_iters=1)
     sd = weights.load_state_dict(str(repo / "gate/flagship_ft1_f16.npz"))
     seq = train_batch(torch, repo, 2, 1, "cpu")
     for fix, mode, tag in (("flow", "rec", "phase 2, rec trains"),
@@ -2020,7 +2028,8 @@ def training_path(torch, repo: Path, counters: dict) -> dict:
     if saved != [f"{trainer.model_name}_{e}.pth.tar" for e in (1, 2, 4)]:
         raise AssertionError(f"checkpoints {saved}")
     path = os.path.join(trainer.path_to_model, saved[-1])
-    rec = Reconstructor(Config(image_dim=(H, W), depth=depth, flow_iters=iters,
+    rec = Reconstructor(Config(model_mode="cista-eiflow",
+                               image_dim=(H, W), depth=depth, flow_iters=iters,
                                path_to_test_model=path), device="cuda")
     (out, flows), got = counted(counters, lambda: rec.step_window(voxels(6, STEPS),
                                                                   return_all=True))
@@ -3048,7 +3057,8 @@ def chairs2_pretraining(torch, repo: Path, counters: dict) -> dict:
         per_batch = {k: 1e3 * v / len(batches) for k, v in host.items()}
         per_batch["rest"] = 1e3 * sum(batches) / len(batches) - sum(per_batch.values())
         saved = torch.load(models / f"{arch}_b5" / f"{arch}_1.pth.tar", weights_only=True)
-        pf.flow_net(arch, Config(), "cpu").load_state_dict(saved["model"], strict=True)
+        pf.flow_net(arch, Config(model_mode="cista-eiflow"), "cpu").load_state_dict(
+            saved["model"], strict=True)
         print(f"  {tag}: {secs:.1f} s for {len(steps)} steps; device ms per step (after the "
               f"warm-up {steps[0][0]:.1f}) {ms:.1f}, busy {100 * busy:.1f}% (device ms: forward "
               f"{split['forward']:.1f}, backward {split['backward']:.1f}, optimizer "
@@ -3144,8 +3154,9 @@ def dp_against_one_process(torch, repo: Path, device: str, backend, tag: str) ->
     from cista_flow_torch.parallel import check
 
     iters, depth, anchor = TRAIN_POINT
-    cfg = Config(image_dim=(H, W), depth=depth, flow_iters=iters)
-    bf16 = Config(image_dim=(H, W), depth=depth, flow_iters=iters, dtype="bfloat16")
+    cfg = Config(model_mode="cista-eiflow", image_dim=(H, W), depth=depth, flow_iters=iters)
+    bf16 = Config(model_mode="cista-eiflow",
+                  image_dim=(H, W), depth=depth, flow_iters=iters, dtype="bfloat16")
     f32_seq = dp_seq(torch, repo, DP_T, DP_BATCH)
     jobs = [dict(cfg=cfg, weights=str(repo / anchor), seq=f32_seq, fix=fix, loss_mode=mode,
                  use_gt_flow=False) for fix, mode, _ in DP_PHASES]
@@ -3224,10 +3235,10 @@ def train_cli_distributed(torch, repo: Path, counters: dict) -> dict:
     out = repo / "build" / "dp_models"
     shutil.rmtree(out, ignore_errors=True)
     iters, depth, anchor = TRAIN_POINT
-    args = ["--path_to_train_data", str(data), "--path_to_model", str(out), "--path_to_e2vflow",
-            str(repo / anchor), "-d", str(depth), "--flow_iters", str(iters), "-s",
-            str(TRAIN_T), "--batch_size", str(batch), "--flow_epoch", "1", "--rec_epoch", "1",
-            "--dtype", "bfloat16", "--orbax_ckpt", "--distributed"]
+    args = ["--model_mode", "cista-eiflow", "--path_to_train_data", str(data), "--path_to_model",
+            str(out), "--path_to_e2vflow", str(repo / anchor), "-d", str(depth), "--flow_iters",
+            str(iters), "-s", str(TRAIN_T), "--batch_size", str(batch), "--flow_epoch", "1",
+            "--rec_epoch", "1", "--dtype", "bfloat16", "--orbax_ckpt", "--distributed"]
     name = train.model_name_from_cfg(train.parse_args(args)[0])
     t0 = time.perf_counter()
     run = subprocess.run([sys.executable, "-m", "cista_flow_torch.train", *args, "--epochs", "1"],
@@ -3699,7 +3710,7 @@ def spatial_train_ranks(torch, repo: Path, device: str, backend, tag: str) -> di
     from cista_flow_torch.parallel import check
 
     iters, depth, anchor = TRAIN_POINT
-    cfg = Config(image_dim=(H, W), depth=depth, flow_iters=iters)
+    cfg = Config(model_mode="cista-eiflow", image_dim=(H, W), depth=depth, flow_iters=iters)
     bf16 = dataclasses.replace(cfg, dtype="bfloat16")
     f32_seq = dp_seq(torch, repo, SPATIAL_TRAIN_T, SPATIAL_TRAIN_BATCH)
     jobs = [dict(kind="step", grid=(1, 2), cfg=cfg, weights=str(repo / anchor), seq=f32_seq,
@@ -4116,6 +4127,12 @@ SURFACE_MVSEC_ITEMS = MVSEC_ITEMS     # 7 scored frames: at 6 items' 3, f32 is 2
 SURFACE_F32_TOL = 1e-4               # max abs error over the reference's largest magnitude
 SURFACE_BF16_TOL = 5e-2              # relative L2 error against the CPU's f32: 8-bit significands over ~20 layers
 SMALL_ENCODER_NORMS = 21             # the head's, 3 a bottleneck block, 2 downsamples
+GROUP_F32_TOL = 1e-5                 # (d): max abs error over the CPU output's largest magnitude
+GROUP_BF16_TOL = 3e-2                # (d): relative L2 against the CPU's f32 (CPU bf16: 8.5e-3
+#                                      BasicEncoder, 1.9e-2 SmallEncoder; SmallEncoder's ~3e-2)
+# (d): K5 launches a call: BasicEncoder's layer1 (4 convs 64->64), layer3's second
+# conv and its second block's two (128->128); SmallEncoder's 3x3 convs are 8-24 wide
+GROUP_K5 = {"BasicEncoder": 7, "SmallEncoder": 0}
 
 
 def host_event_library(repo: Path, counters: dict) -> dict:
@@ -4361,11 +4378,128 @@ def surface_modules(torch, counters: dict) -> dict:
     return total
 
 
+def event_ms(torch, fn, calls: int = 10) -> float:
+    """Ms per call between two CUDA events around ``calls`` back-to-back
+    calls after a warm-up: the card's span, gaps between launches included.
+    Phase 16 runs after phase 12, whose profiler traces then lose kernel
+    records (``profile_kernels.device_ms`` would refuse them)."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / calls
+
+
+def group_norm_encoders(torch, counters: dict) -> dict:
+    """Phase 16 (d): ``BasicEncoder(3, 256, "group")`` and
+    ``SmallEncoder(3, 128, "group")``, seeded weights (the group norms'
+    affine drawn too), at 180x240, batch 8, on the card in f32 (cuDNN's
+    TF32 off) and bf16 against the same module on the CPU in f32: f32 to
+    ``GROUP_F32_TOL`` of the output's largest magnitude, bf16 to
+    ``GROUP_BF16_TOL`` relative L2; K5's launches a call (``GROUP_K5``; no
+    other kernel: group norm is plain PyTorch); event ms a call."""
+    import copy
+
+    from cista_flow_torch.nn import encoders
+
+    total = {k: 0 for k in counters}
+    torch.manual_seed(16)
+    g = torch.Generator().manual_seed(17)
+    x = torch.randn(BATCH, 3, H, W, generator=g)
+    for enc in (encoders.BasicEncoder(3, 256, "group"), encoders.SmallEncoder(3, 128, "group")):
+        name = type(enc).__name__
+        with torch.no_grad():
+            for m in enc.modules():
+                if isinstance(m, torch.nn.GroupNorm):
+                    m.weight.copy_(0.5 + torch.rand(m.weight.shape, generator=g))
+                    m.bias.copy_(0.2 * torch.randn(m.bias.shape, generator=g))
+            ref = enc.eval()(x)
+            for dtype in ("float32", "bfloat16"):
+                dt = getattr(torch, dtype)
+                md, xd = copy.deepcopy(enc).to("cuda", dt), x.to("cuda", dt)
+                with cudnn_fp32_scope(torch, dtype):
+                    out, got = counted(counters, lambda: md(xd))
+                    torch.cuda.synchronize()
+                    ms = event_ms(torch, lambda: md(xd))
+                out = out.float().cpu()
+                if dtype == "float32":
+                    err, tol, kind = (float((out - ref).abs().max() / ref.abs().max()),
+                                      GROUP_F32_TOL, "max abs / max")
+                else:
+                    err, tol, kind = (float((out - ref).norm() / ref.norm()), GROUP_BF16_TOL,
+                                      "relative L2")
+                expect_launches(f"(d) {name} group {dtype} {H}x{W} batch {BATCH}: {kind} against "
+                                f"the CPU {err:.2e} (tol {tol:.0e}), {ms:.3f} event ms a call",
+                                got, {"K5": GROUP_K5[name]})
+                if not np.isfinite(err) or err > tol:
+                    raise AssertionError(f"(d) {name} group {dtype}: {err} against the CPU")
+                for k in total:
+                    total[k] += got[k]
+    return total
+
+
+def trainer_cli(torch, repo: Path, counters: dict) -> dict:
+    """Phase 16 (e): the JAX trainer's command line on the card:
+    ``train.main`` (``python -m cista_flow_torch.train``'s body) in this
+    process, from a work directory under ``build/``, with no
+    ``--model_mode`` (so ``cista-lstc`` at full width), ``--is_SummaryWriter``
+    and ``--no_shuffle``, for one epoch of a tiny simulated set at 180x240:
+    exit 0, the ``cista-lstc`` checkpoint of epoch 1, the no-tensorboard
+    message where tensorboard is missing (else its log directory), and K3
+    and K5 launched."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+
+    from cista_flow_torch import train
+    from cista_flow_torch.data.sim import write_train_dataset
+
+    work = repo / "build" / "trainer_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    write_train_dataset(str(work / "data"), 2, 4, H, W, seed=0)
+    argv = ["--path_to_train_data", str(work / "data"), "--path_to_model", str(work / "models"),
+            "-s", "3", "--batch_size", "2", "--epochs", "1", "--is_SummaryWriter", "--no_shuffle"]
+    cfgs, device = train.parse_args(argv)
+    if (cfgs.model_mode, cfgs.shuffle, device) != ("cista-lstc", True, "cuda"):
+        raise AssertionError(f"(e) parsed {cfgs.model_mode}, shuffle {cfgs.shuffle}, {device}")
+    log, cwd, t0 = io.StringIO(), os.getcwd(), time.perf_counter()
+    os.chdir(work)
+    try:
+        with contextlib.redirect_stdout(log):
+            rc, got = counted(counters, lambda: train.main(argv))
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    secs = time.perf_counter() - t0
+    out = log.getvalue()
+    name = train.model_name_from_cfg(cfgs)
+    saved = sorted(os.listdir(work / "models" / name))
+    has_tb = importlib.util.find_spec("tensorboard") is not None
+    said = "tensorboard unavailable; scalar logging disabled" in out
+    logged = (work / "summary" / name).is_dir()
+    print("\n".join(f"      | {line}" for line in out.splitlines()[-4:]))
+    print(f"  (e) train with no --model_mode ({name}), --is_SummaryWriter --no_shuffle: exit {rc}"
+          f", {secs:.1f} s, saved {saved}, tensorboard {'present' if has_tb else 'missing'}: "
+          f"{'log directory written' if logged else 'message printed' if said else 'NOTHING'}; "
+          f"launches {got}")
+    if rc != 0 or name != "cista-lstc_b5_d5_c64" or saved != [f"{name}_1.pth.tar"] \
+            or (logged if not has_tb else not logged) or said == has_tb \
+            or "Train Epoch: 1" not in out or not (got["K3"] > 0 and got["K5"] > 0):
+        raise AssertionError(f"(e) the trainer's command line on the card: {out[-2000:]}")
+    return got
+
+
 def library_surface(torch, repo: Path, counters: dict) -> dict:
-    """Phase 16: the host event library, ``test_mvsec`` on row bands and
-    the library surface (``host_event_library``, ``sharded_mvsec``,
-    ``surface_modules``). Writes phase 15's recording first when phase 15
-    did not run."""
+    """Phase 16: the host event library, ``test_mvsec`` on row bands, the
+    library surface, the group-norm encoders and the trainer's command line
+    (``host_event_library``, ``sharded_mvsec``, ``surface_modules``,
+    ``group_norm_encoders``, ``trainer_cli``). Writes phase 15's recording
+    first when phase 15 did not run."""
     from cista_flow_torch.data.sim import write_mvsec_hdf5
 
     root = repo / "build" / "mvsec_data"
@@ -4378,12 +4512,13 @@ def library_surface(torch, repo: Path, counters: dict) -> dict:
         total[k] += n
     t1 = time.perf_counter()
     print(f"  (a): {t1 - t0:.1f} s")
-    for part in (sharded_mvsec, surface_modules):
-        got = part(torch, repo, counters) if part is sharded_mvsec else part(torch, counters)
+    for tag, part in (("b", sharded_mvsec), ("c", surface_modules), ("d", group_norm_encoders),
+                      ("e", trainer_cli)):
+        got = part(torch, repo, counters) if tag in "be" else part(torch, counters)
         for k, n in got.items():
             total[k] += n
         t2 = time.perf_counter()
-        print(f"  ({'b' if part is sharded_mvsec else 'c'}): {t2 - t1:.1f} s")
+        print(f"  ({tag}): {t2 - t1:.1f} s")
         t1 = t2
     return total
 

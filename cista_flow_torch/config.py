@@ -1,15 +1,15 @@
 """The configuration fields the serving step, the eval CLIs and the trainer
 read, and the reference's flag surface.
 
-A copy of ``cista_flow_tpu.configs.Config`` (same names, same defaults)
-without the TPU knobs; the port imports nothing of the JAX package.
-``add_args``/``from_args`` keep the reference's flag names and short forms
-(ref: utils/configs.py:4-165) and add ``--device``. The JAX package's
-TPU-only flags (``TPU_ONLY_FLAGS``) are not accepted. Its mesh flags
-(``MESH_FLAGS``) are the trainer's (a data axis) and, through
-``add_mesh_args``, the serving CLIs' (a spatial axis). The dataclass's own
-``model_mode`` default is ``cista-eiflow``; the flag's, as in the reference,
-is ``cista-lstc``.
+A copy of ``cista_flow_tpu.configs.Config`` (same names, same defaults,
+``model_mode`` ``cista-lstc`` among them) without the TPU knobs; the port
+imports nothing of the JAX package. ``add_args``/``from_args`` keep the
+reference's flag names and short forms (ref: utils/configs.py:4-165) and
+add ``--device``. The JAX package's TPU-only flags (``TPU_ONLY_FLAGS``, the
+Pallas routings and the encoder merge, with their ``--no-`` forms) are
+refused by name. Its mesh flags (``MESH_FLAGS``) are the trainer's (data
+and spatial axes) and, through ``add_mesh_args``, the serving CLIs' (a
+spatial axis).
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ TPU_ONLY_FLAGS = ("--serve_pallas", "--train_pallas", "--encoder_merge",
 @dataclass
 class Config:
     image_dim: tuple = (180, 240)
-    model_mode: str = "cista-eiflow"  # cista-eiflow | cista-eraft | cista-idnet | cista-lstc | cista-gtflow
+    model_mode: str = "cista-lstc"   # or cista-eiflow, cista-eraft, cista-idnet, cista-gtflow
     num_bins: int = 5
     depth: int = 5
     base_channels: int = 64
@@ -112,12 +112,21 @@ class Config:
             self.model_mode, 6)
 
 
+class _RefuseTPUOnly(argparse.Action):
+    """A TPU-only flag of the JAX package: refused by name."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string}: a TPU-only kernel routing or formulation of the JAX "
+                     "package; the port has none (its kernels are hand-written CUDA)")
+
+
 def add_args(parser: argparse.ArgumentParser) -> None:
     """The reference's flags (cista_flow_tpu/configs.py:160-240), the port's
     extensions ``--dtype``, ``--flow_iters``, ``--seed``,
-    ``--eraft_tchunk``, ``--flow_half``, the JAX trainer's ``--orbax_ckpt``,
-    ``--remat`` and ``--save_every_steps`` (configs.py:228-230), and
-    ``--device`` (``cuda``, the default, or ``cpu``)."""
+    ``--eraft_tchunk``, ``--flow_half`` / ``--no-flow_half``, the JAX
+    trainer's ``--orbax_ckpt``, ``--remat`` and ``--save_every_steps``
+    (configs.py:228-230), and ``--device`` (``cuda``, the default, or
+    ``cpu``). ``TPU_ONLY_FLAGS`` parse only to be refused by name."""
     a = parser.add_argument
     a("--image_dim", nargs=2, default=[180, 240], type=int)
     a("--path_to_model", default="models", type=str)
@@ -183,7 +192,7 @@ def add_args(parser: argparse.ArgumentParser) -> None:
     a("--flow_iters", default=None, type=int)
     a("--seed", default=1234, type=int)
     a("--eraft_tchunk", default=0, type=int)
-    a("--flow_half", action="store_true")
+    a("--flow_half", default=False, action=argparse.BooleanOptionalAction)
     a("--orbax_ckpt", action="store_true",
       help="also write the full training state at every epoch save (the port's "
            "torch.save files, not orbax), for --load_epoch_for_train -1")
@@ -191,6 +200,10 @@ def add_args(parser: argparse.ArgumentParser) -> None:
     a("--save_every_steps", default=0, type=int,
       help="> 0: a full-state save every N optimizer steps")
     a("--device", default="cuda", help="cuda (default) or cpu")
+    for flag in TPU_ONLY_FLAGS:
+        forms = (flag,) if flag == "--encoder_merge" else (flag, "--no-" + flag[2:])
+        a(*forms, nargs="?" if flag == "--encoder_merge" else 0, action=_RefuseTPUOnly,
+          default=argparse.SUPPRESS, help=argparse.SUPPRESS)
 
 
 def add_mesh_args(parser: argparse.ArgumentParser) -> None:

@@ -3,24 +3,32 @@
 ``events_to_voxel_grid`` and ``event_preprocess`` (mode 'std') run the
 port's host event library (``events/native.py``), as the JAX package's
 run its native library by default (cista_flow_tpu/events/voxel.py): the
-voxels are bit for bit those of the JAX package's default path. The numpy
-functions are the plain versions, copies of the JAX package's numpy golden
+voxels are bit for bit those of the JAX package's default path.
+``CISTA_NO_NATIVE=1`` in the environment at import selects the numpy
+versions for both, as it does in the JAX package. The numpy functions are
+the plain versions, copies of the JAX package's numpy golden
 (``events_to_voxel_grid_numpy``, ``event_preprocess_numpy``; ref:
 utils/event_process.py:15-72, 193-216). With them the reference's variants:
 the polarity-separated voxel, the noise augmentation and mode 'maxmin'.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from . import native
+
+# read once at import, as cista_flow_tpu/events/voxel.py reads it
+_USE_NATIVE = os.environ.get("CISTA_NO_NATIVE", "0") != "1"
 
 
 def events_to_voxel_grid(events: np.ndarray, num_bins: int, width: int,
                          height: int, is_reverse: bool = False) -> np.ndarray:
     """N x 4 ``[t, x, y, p]`` -> (num_bins, H, W) float32 voxel grid, by
-    the host event library (bit for bit ``events_to_voxel_grid_numpy``)."""
-    if len(events):
+    the host event library (bit for bit ``events_to_voxel_grid_numpy``), or
+    by that numpy version under ``CISTA_NO_NATIVE=1``."""
+    if _USE_NATIVE and len(events):
         return native.voxelize_events(events, num_bins, width, height, is_reverse)
     return events_to_voxel_grid_numpy(events, num_bins, width, height, is_reverse)
 
@@ -102,8 +110,9 @@ def event_preprocess(voxel: np.ndarray, mode: str = "std",
     """Nonzero-masked normalization (ref: utils/event_process.py:193-216).
     Mode 'std' runs the host event library in place on a C-contiguous
     float32 voxel (a copy otherwise) and returns it, as the JAX package's
-    default path does; 'maxmin' is ``event_preprocess_numpy``'s."""
-    if mode != "std":
+    default path does; 'maxmin', and 'std' under ``CISTA_NO_NATIVE=1``, are
+    ``event_preprocess_numpy``'s."""
+    if mode != "std" or not _USE_NATIVE:
         return event_preprocess_numpy(voxel, mode, filter_hot_pixel)
     v = np.ascontiguousarray(voxel, dtype=np.float32)
     native.preprocess_std(v, filter_hot_pixel)

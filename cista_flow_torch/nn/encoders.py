@@ -5,7 +5,9 @@ Counterpart of cista_flow_tpu/nn/encoders.py ``residual_block``,
 ``basic_encoder`` (ref: DCEIFlow/core/backbone/raft_encoder.py:125-203),
 ``bottleneck_block``, ``small_encoder`` (ref: raft_encoder.py:62-122,
 206-255) and ``lite_encoder`` (ref: idn/extractor.py:63-104), with instance norm (kernel
-K4 on the card), eval-mode batch norm or no norm. Convs are zero-padded;
+K4 on the card), batch norm, group norm (plain PyTorch, ``conv.group_norm``:
+the stems in 8 groups, a residual or bottleneck block's norms in its output
+width // 8, as there) or no norm. Convs are zero-padded;
 the square 64- and 128-channel ones are kernel K5 on the card. Module names
 follow the reference, so its state dicts load with ``strict=True``; conv
 weights start as the reference initialises them (``_kaiming``). An
@@ -19,7 +21,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import bands
-from ..ops.conv import batch_norm, conv2d, instance_norm
+from ..ops.conv import batch_norm, conv2d, group_norm, instance_norm
 from ..ops.cuda_norm import instance_norm_from_stats
 
 NORM_ROUTES = {"fused": instance_norm, "stats": instance_norm_from_stats}
@@ -34,17 +36,41 @@ def _kaiming(*convs: nn.Conv2d) -> None:
         nn.init.kaiming_normal_(conv.weight, mode="fan_out", nonlinearity="relu")
 
 
+def _norm_module(norm_fn: str, ch: int, num_groups: int) -> nn.Module | None:
+    """The parameters of one norm site under the reference's module (None
+    where the norm has none)."""
+    if norm_fn == "batch":
+        return nn.BatchNorm2d(ch)
+    if norm_fn == "group":
+        return nn.GroupNorm(num_groups, ch)
+    if norm_fn in ("instance", "none"):
+        return None
+    raise ValueError(f"unknown norm_fn {norm_fn!r}")
+
+
 class _Normed(nn.Module):
     norm_fn = "instance"
     _norm_route = "fused"
+    _encoder = None            # the encoder a block belongs to, for messages
 
-    def norm(self, x, bn: nn.BatchNorm2d | None, relu: bool):
+    def norm(self, x, mod: nn.Module | None, relu: bool):
         if self.norm_fn == "instance":
             if bands.active() is not None:      # a row band: both routes combine K4s's statistics
                 return instance_norm(x, relu=relu)
             return NORM_ROUTES[self._norm_route](x, relu=relu)
-        y = x if self.norm_fn == "none" else batch_norm(x, bn)
+        if self.norm_fn == "group":
+            if bands.active() is not None:
+                raise ValueError(f"{self._encoder or type(self).__name__}: group norm's "
+                                 "statistics span the whole frame; it has no row-band form")
+            y = group_norm(x, mod.weight, mod.bias, mod.num_groups, mod.eps)
+        else:
+            y = x if self.norm_fn == "none" else batch_norm(x, mod)
         return torch.relu(y) if relu else y
+
+    def _name_blocks(self) -> None:
+        for m in self.modules():
+            if isinstance(m, _Normed):
+                m._encoder = type(self).__name__
 
 
 class ResidualBlock(_Normed):
@@ -54,20 +80,17 @@ class ResidualBlock(_Normed):
         self.stride = stride
         self.conv1 = nn.Conv2d(cin, cout, 3, padding=1, stride=stride)
         self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
-        batch = norm_fn == "batch"
-        self.norm1 = nn.BatchNorm2d(cout) if batch else None
-        self.norm2 = nn.BatchNorm2d(cout) if batch else None
+        groups = max(cout // 8, 1)
+        self.norm1 = _norm_module(norm_fn, cout, groups)
+        self.norm2 = _norm_module(norm_fn, cout, groups)
         self.norm3 = None
         self.downsample = None
         if stride != 1:
             down = nn.Conv2d(cin, cout, 1, stride=stride)
-            if batch:
-                # the reference registers norm3 both as an attribute and
-                # inside the downsample Sequential (same module)
-                self.norm3 = nn.BatchNorm2d(cout)
-                self.downsample = nn.Sequential(down, self.norm3)
-            else:
-                self.downsample = nn.Sequential(down)
+            # the reference registers norm3 both as an attribute and inside
+            # the downsample Sequential (same module)
+            self.norm3 = _norm_module(norm_fn, cout, groups)
+            self.downsample = nn.Sequential(down, *(() if self.norm3 is None else (self.norm3,)))
         _kaiming(self.conv1, self.conv2, *(() if self.downsample is None
                                            else (self.downsample[0],)))
 
@@ -92,7 +115,7 @@ class BasicEncoder(_Normed):
         self.norm_fn = norm_fn
         self.stride1 = 2 if ds == 8 else 1
         self.conv1 = nn.Conv2d(input_dim, 64, 7, stride=self.stride1, padding=3)
-        self.norm1 = nn.BatchNorm2d(64) if norm_fn == "batch" else None
+        self.norm1 = _norm_module(norm_fn, 64, 8)
         dims = [(64, 64, 1), (64, 96, 2), (96, 128, 2)]
         for i, (cin, cout, stride) in enumerate(dims, start=1):
             setattr(self, f"layer{i}", nn.Sequential(
@@ -100,6 +123,7 @@ class BasicEncoder(_Normed):
                 ResidualBlock(cout, cout, norm_fn, 1)))
         self.conv2 = nn.Conv2d(128, output_dim, 1)
         _kaiming(self.conv1, self.conv2)
+        self._name_blocks()
 
     @property
     def norm_route(self) -> str:
@@ -134,19 +158,16 @@ class BottleneckBlock(_Normed):
         self.conv1 = nn.Conv2d(cin, mid, 1)
         self.conv2 = nn.Conv2d(mid, mid, 3, padding=1, stride=stride)
         self.conv3 = nn.Conv2d(mid, cout, 1)
-        batch = norm_fn == "batch"
-        self.norm1 = nn.BatchNorm2d(mid) if batch else None
-        self.norm2 = nn.BatchNorm2d(mid) if batch else None
-        self.norm3 = nn.BatchNorm2d(cout) if batch else None
+        groups = max(cout // 8, 1)         # all four norms, the mid-width ones too
+        self.norm1 = _norm_module(norm_fn, mid, groups)
+        self.norm2 = _norm_module(norm_fn, mid, groups)
+        self.norm3 = _norm_module(norm_fn, cout, groups)
         self.norm4 = None
         self.downsample = None
         if stride != 1:
             down = nn.Conv2d(cin, cout, 1, stride=stride)
-            if batch:
-                self.norm4 = nn.BatchNorm2d(cout)
-                self.downsample = nn.Sequential(down, self.norm4)
-            else:
-                self.downsample = nn.Sequential(down)
+            self.norm4 = _norm_module(norm_fn, cout, groups)
+            self.downsample = nn.Sequential(down, *(() if self.norm4 is None else (self.norm4,)))
         _kaiming(self.conv1, self.conv2, self.conv3,
                  *(() if self.downsample is None else (self.downsample[0],)))
 
@@ -175,7 +196,7 @@ class SmallEncoder(BasicEncoder):
         self.norm_fn = norm_fn
         self.stride1 = 2
         self.conv1 = nn.Conv2d(input_dim, 32, 7, stride=2, padding=3)
-        self.norm1 = nn.BatchNorm2d(32) if norm_fn == "batch" else None
+        self.norm1 = _norm_module(norm_fn, 32, 8)
         dims = [(32, 32, 1), (32, 64, 2), (64, 96, 2)]
         for i, (cin, cout, stride) in enumerate(dims, start=1):
             setattr(self, f"layer{i}", nn.Sequential(
@@ -183,6 +204,7 @@ class SmallEncoder(BasicEncoder):
                 BottleneckBlock(cout, cout, norm_fn, 1)))
         self.conv2 = nn.Conv2d(96, output_dim, 1)
         _kaiming(self.conv1, self.conv2)
+        self._name_blocks()
 
 
 class LiteEncoder(nn.Module):

@@ -2,7 +2,8 @@
 
 Counterpart of cista_flow_tpu/ops/conv.py, without its TPU regroupings
 (the tap-sum, stride-2 phase and ones-dot formulations compute the same
-plain ops). ``instance_norm`` is kernel K4 on the card, and ``conv2d`` sends
+plain ops). ``instance_norm`` is kernel K4 on the card, ``group_norm`` plain
+PyTorch (no Pallas kernel computes it there), and ``conv2d`` sends
 the square 3x3 convs of 64 and 128 channels to kernel K5, by the shape rule
 of the JAX dispatch (ops/conv.py there, pallas_conv.CHANNELS).
 
@@ -149,6 +150,22 @@ def batch_norm(x: torch.Tensor, bn: torch.nn.BatchNorm2d, eps: float = 1e-5,
     inv = torch.rsqrt(var + eps) * bn.weight
     return ((x - mean.to(x.dtype)[None, :, None, None])
             * inv.to(x.dtype)[None, :, None, None] + bn.bias.to(x.dtype)[None, :, None, None])
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               num_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm (cista_flow_tpu/ops/conv.py ``group_norm``): per sample and
+    group, the mean and biased variance over (C / G, H, W) in f32, then the
+    per-channel affine in f32, cast to x's dtype at the end. Plain PyTorch
+    on every device: the JAX package computes it outside any Pallas
+    kernel. (``F.group_norm`` would take bf16 input with f32 parameters in
+    another order.)"""
+    b, c, h, w = x.shape
+    xf = x.float().reshape(b, num_groups, c // num_groups, h, w)
+    mean = xf.mean(dim=(2, 3, 4), keepdim=True)
+    var = xf.var(dim=(2, 3, 4), unbiased=False, keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, c, h, w)
+    return (y * weight.float()[:, None, None] + bias.float()[:, None, None]).to(x.dtype)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5,

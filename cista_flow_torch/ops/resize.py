@@ -26,12 +26,31 @@ def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False,
     return y.to(x.dtype)
 
 
+def resize_flow(flow: torch.Tensor, out_hw, scale: float | None = None) -> torch.Tensor:
+    """A flow field (B, 2, H, W) resized to ``out_hw`` and its magnitude
+    scaled, the reference's ``upflow{2,4,8,16}`` / ``downflow{2,4,8}``
+    family (ref: DCEIFlow/utils/sample_utils.py:61-96; the JAX package's
+    ``resize_flow``): bilinear with align_corners=True, times ``scale``
+    (default ``out_h / in_h``) rounded to the flow's dtype, as JAX
+    multiplies by ``jnp.asarray(scale, flow.dtype)``."""
+    if scale is None:
+        scale = out_hw[0] / flow.shape[2]
+    scale = float(torch.tensor(scale, dtype=flow.dtype))
+    return resize_bilinear(flow, out_hw, align_corners=True) * scale
+
+
 def upflow(flow: torch.Tensor, factor: int) -> torch.Tensor:
     """``upflow{factor}``: align_corners=True resize, magnitudes x factor
     (ref: DCEIFlow/utils/sample_utils.py:61-78)."""
     _, _, h, w = flow.shape
-    return resize_bilinear(flow, (h * factor, w * factor),
-                           align_corners=True) * float(factor)
+    return resize_flow(flow, (h * factor, w * factor), scale=float(factor))
+
+
+def downflow(flow: torch.Tensor, factor: int) -> torch.Tensor:
+    """``downflow{factor}``: to (H // factor, W // factor), magnitudes /
+    factor (ref: DCEIFlow/utils/sample_utils.py:81-91)."""
+    _, _, h, w = flow.shape
+    return resize_flow(flow, (h // factor, w // factor), scale=1.0 / factor)
 
 
 def interpolate_scale(x: torch.Tensor, scale_factor: float,

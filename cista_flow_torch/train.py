@@ -1,15 +1,21 @@
-"""The CISTA-Flow trainer on one card or data-parallel over cards:
-three-phase schedule, BPTT over sequences, every model mode.
+"""The CISTA-Flow trainer on one card or over cards (data-parallel, row
+bands or both): three-phase schedule, BPTT over sequences, every model mode.
 
-    python -m cista_flow_torch.train --model_mode cista-eiflow \
+    python -m cista_flow_torch.train [--model_mode cista-eiflow] \
         --path_to_train_data DIR [--path_to_e2vflow CKPT] [--epochs N] ...
-        [--remat] [--save_every_steps N] [--orbax_ckpt]
+        [--remat] [--save_every_steps N] [--orbax_ckpt] [--is_SummaryWriter]
         [--load_epoch_for_train E | -1] [--device cpu] [--dtype bfloat16]
         [--distributed | --mesh_shape N [--mesh_axes data | spatial]
          | --mesh_shape D,S --mesh_axes data,spatial]
     torchrun --nproc_per_node N -m cista_flow_torch.train ...
 
-Counterpart of the JAX package's ``train.py`` (ref: train.py:27-269):
+Counterpart of the JAX package's ``train.py`` (ref: train.py:27-269), with
+its command line: every flag of ``config.add_args`` (the JAX
+``configs.add_args``) with its default (``--model_mode cista-lstc``), the
+shuffle always on (``--no_shuffle`` parses and changes nothing, as there),
+the TPU-only routings refused by name, plus ``--device`` and the mesh flags.
+Flags only the JAX package's serving CLIs read parse and are unused here,
+as there. What it does:
 * phase schedule (ref: train.py:116-129): for cista-eiflow, cista-eraft
   and cista-idnet, epochs [0, flow_epoch) train the flow net with the
   reconstructor frozen and the GT flow driving the warps; [flow_epoch,
@@ -41,9 +47,13 @@ Counterpart of the JAX package's ``train.py`` (ref: train.py:27-269):
   host, split over its cards), with BatchNorm's statistics, the gradients
   and the loss those of the global batch; rank 0 alone writes the
   checkpoints and the log; batches reach the card through
-  ``data/prefetch.py`` (two in flight).
-Not ported: training on the spatial mesh axis (ROADMAP.md, Queue 1, item
-9.3; serving takes it, ``parallel/spatial.py``) and the TensorBoard writer.
+  ``data/prefetch.py`` (two in flight); ``--mesh_axes spatial`` and
+  ``data,spatial`` split every frame's rows over a rank's spatial group
+  (``parallel/spatial.py``);
+* ``--is_SummaryWriter`` logs the loss of every optimizer step to
+  ``./summary/{model_name}`` through ``torch.utils.tensorboard`` (rank 0
+  alone); without tensorboard it says so and trains on, as the JAX
+  trainer does (train.py:172-179, 213-214).
 """
 from __future__ import annotations
 
@@ -56,7 +66,7 @@ import time
 import numpy as np
 import torch
 
-from . import ckpt, weights
+from . import ckpt, config, weights
 from .config import Config
 from .data.prefetch import device_prefetch
 from .data.train_loader import StackedSequenceLoader, TrainSequenceDataset
@@ -194,6 +204,13 @@ class Trainer:
         else:
             self.lpips_params = lpips.to(self.lpips_params, self.device)
         self._steps = {}
+        self.writer = None
+        if cfgs.is_SummaryWriter and self.writes:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self.writer = SummaryWriter(f"./summary/{self.model_name}")
+            except ImportError:
+                print("tensorboard unavailable; scalar logging disabled")
 
     def _resume_point(self) -> tuple:
         """(directory, step) of the newest full-state save, as the JAX
@@ -250,6 +267,8 @@ class Trainer:
             for batch_idx, seq in enumerate(device_prefetch(self.loader, size=2,
                                                             device=self.device)):
                 loss = step(self.model, seq)
+                if self.writer is not None:
+                    self.writer.add_scalar("loss", float(loss), global_step)
                 global_step += 1
                 if cfgs.save_every_steps > 0 and global_step % cfgs.save_every_steps == 0:
                     # a mid-epoch save: a resume restarts this epoch from it
@@ -264,6 +283,8 @@ class Trainer:
                 self.save(lambda: self.save_epoch(epoch))
             self.log(f"epoch{epoch + 1}: {n} batches in {time.perf_counter() - t0:.2f} s "
                      "(host clock)")
+        if self.writer is not None:
+            self.writer.close()
 
     def save_epoch(self, epoch: int) -> None:
         """The reference-layout checkpoint of ``epoch`` (and with
@@ -276,67 +297,33 @@ class Trainer:
 
 
 def parse_args(argv=None) -> tuple[Config, str]:
+    """The JAX trainer's command line (train.py:253-257: ``configs.add_args``,
+    then ``shuffle = True``), with ``--device`` and the trainer's mesh flags;
+    ``--path_to_train_data`` is required."""
     ap = argparse.ArgumentParser(description="train the PyTorch port")
-    ap.add_argument("--image_dim", nargs=2, default=[180, 240], type=int)
-    ap.add_argument("--path_to_model", default="models")
-    ap.add_argument("--model_name", default="")
-    ap.add_argument("--model_mode", default="cista-eiflow")
-    ap.add_argument("-b", "--num_bins", default=5, type=int)
-    ap.add_argument("-d", "--depth", default=5, type=int)
-    ap.add_argument("-c", "--base_channels", default=64, type=int)
-    ap.add_argument("--path_to_e2v")
-    ap.add_argument("--path_to_e2vflow")
-    ap.add_argument("--path_to_flownet")
-    ap.add_argument("--path_to_train_data", required=True)
-    ap.add_argument("-s", "--len_sequence", default=10, type=int)
-    ap.add_argument("--epochs", default=1, type=int)
-    ap.add_argument("--flow_epoch", default=20, type=int)
-    ap.add_argument("--rec_epoch", default=5, type=int)
-    ap.add_argument("--lr", default=1e-4, type=float)
-    ap.add_argument("--batch_size", default=1, type=int,
-                    help="the batch of one host, split over its cards")
-    ap.add_argument("--load_epoch_for_train", default=0, type=int)
-    ap.add_argument("--is_forward_flow", action="store_true")
-    ap.add_argument("--warp_mode", default="forward")
-    ap.add_argument("--is_reverse_events", action="store_true")
-    ap.add_argument("--is_bi", action="store_true")
-    ap.add_argument("--num_events", default=15000, type=int)
-    ap.add_argument("--flow_iters", default=None, type=int)
-    ap.add_argument("--seed", default=1234, type=int)
-    ap.add_argument("--remat", action="store_true",
-                    help="recompute each unroll step in the backward")
-    ap.add_argument("--save_every_steps", default=0, type=int,
-                    help="> 0: a full-state save every N optimizer steps")
-    ap.add_argument("--orbax_ckpt", action="store_true",
-                    help="also write the full state (parameters, BatchNorm buffers, "
-                         "Adam) at every epoch save, as torch.save files under "
-                         "{name}/full_state, for --load_epoch_for_train -1")
-    ap.add_argument("--distributed", action="store_true",
-                    help="data-parallel over every local card, one process each")
+    config.add_args(ap)
     ap.add_argument("--mesh_shape", default="1",
                     help="N > 1: N ranks on the one axis of --mesh_axes (with --device cpu, "
                          "N processes); D,S: a data x spatial mesh")
     ap.add_argument("--mesh_axes", default="data",
                     help="data (the batch split), spatial (every frame's rows split) or "
                          "data,spatial")
-    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = vars(ap.parse_args(argv))
-    device = args.pop("device")
-    args["image_dim"] = tuple(args["image_dim"])
-    if args["distributed"] and args["mesh_shape"] == "1" and device == "cpu" \
+    args = ap.parse_args(argv)
+    if args.path_to_train_data is None:
+        ap.error("--path_to_train_data: the training set's folder is required")
+    if args.distributed and args.mesh_shape == "1" and args.device == "cpu" \
             and not data_mesh.under_torchrun():
         ap.error("--distributed --device cpu: 'every local card' means nothing on the CPU; "
                  "give the rank count with --mesh_shape N")
-    # the reference trainer always shuffles, as the JAX package's train.py does
-    cfgs = Config(**args, shuffle=True)
+    cfgs = config.from_args(args)
+    cfgs.shuffle = True              # the reference trainer always shuffles
     try:
         _, rows = mesh_dims(cfgs)
         if rows > 1:
             spatial.partition_for(cfgs, rows)
     except ValueError as e:
         ap.error(str(e))
-    return cfgs, device
+    return cfgs, args.device
 
 
 def mesh_dims(cfgs: Config) -> tuple[int, int]:

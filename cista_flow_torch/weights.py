@@ -8,11 +8,13 @@ convs) into the same key layout, so both packages can compute with one set
 of weights (it maps a gradient tree the same way); ``flow_net_from_jax``
 does so for a flow net's tree alone. ``save_checkpoint``
 writes a model in the reference's ``{'epoch', 'state_dict'}`` ``.pth.tar``
-layout, the trainer's checkpoints. ``small_encoder_from_jax``,
+layout, the trainer's checkpoints. ``basic_encoder_from_jax``,
+``small_encoder_from_jax``, ``residual_block_from_jax``,
+``bottleneck_block_from_jax`` (any norm, group norm among them),
 ``small_update_block_from_jax``, ``recurrent_layer_from_jax``,
 ``decay_gates_from_jax`` and ``neuron_lstc_from_jax`` carry the trees of
-the JAX package's library blocks (SmallEncoder, the small update block,
-the cell variants) into the port's modules' state dicts.
+the JAX package's library blocks (the encoders and their blocks, the small
+update block, the cell variants) into the port's modules' state dicts.
 """
 from __future__ import annotations
 
@@ -97,26 +99,45 @@ def _bn(out, prefix, p, s):
     out[prefix + ".num_batches_tracked"] = np.asarray(0, np.int64)
 
 
-def _encoder(out, prefix, p, s, norm_fn):
-    batch = norm_fn == "batch"
-    _conv(out, prefix + ".conv1", p["conv1"])
-    if batch:
-        _bn(out, prefix + ".norm1", p["norm1"], s["norm1"])
+def _norm(out, prefix, norm_fn, p, s):
+    """One norm site: BatchNorm's parameters and statistics, GroupNorm's
+    ``scale`` as ``weight`` and ``bias``; instance and no norm have none."""
+    if norm_fn == "batch":
+        _bn(out, prefix, p, s)
+    elif norm_fn == "group":
+        out[prefix + ".weight"] = np.asarray(p["scale"], np.float32)
+        out[prefix + ".bias"] = np.asarray(p["bias"], np.float32)
+
+
+def _block(out, pre, p, s, norm_fn, convs, norms):
+    """A residual (``convs`` conv1-2, ``norms`` norm1-2, downsample norm3)
+    or bottleneck block (conv1-3, norm1-3, norm4) under ``pre``; the
+    downsample's norm also as ``downsample.1``, as the reference registers
+    it."""
+    for name in convs:
+        _conv(out, pre + name, p[name])
+    for name in norms:
+        _norm(out, pre + name, norm_fn, p[name], s.get(name))
+    if "down" in p:
+        down = f"norm{len(norms) + 1}"
+        _conv(out, pre + "downsample.0", p["down"])
+        _norm(out, pre + "downsample.1", norm_fn, p[down], s.get(down))
+        _norm(out, pre + down, norm_fn, p[down], s.get(down))
+
+
+_RESIDUAL = (("conv1", "conv2"), ("norm1", "norm2"))
+_BOTTLENECK = (("conv1", "conv2", "conv3"), ("norm1", "norm2", "norm3"))
+
+
+def _encoder(out, pre, p, s, norm_fn, block=_RESIDUAL):
+    """BasicEncoder (residual blocks) or SmallEncoder (bottleneck blocks)."""
+    _conv(out, pre + "conv1", p["conv1"])
+    _norm(out, pre + "norm1", norm_fn, p["norm1"], s.get("norm1"))
     for i in (1, 2, 3):
         for j, suf in ((0, "a"), (1, "b")):
-            bp, bs = p[f"layer{i}{suf}"], s.get(f"layer{i}{suf}", {})
-            pre = f"{prefix}.layer{i}.{j}"
-            _conv(out, pre + ".conv1", bp["conv1"])
-            _conv(out, pre + ".conv2", bp["conv2"])
-            if batch:
-                _bn(out, pre + ".norm1", bp["norm1"], bs["norm1"])
-                _bn(out, pre + ".norm2", bp["norm2"], bs["norm2"])
-            if "down" in bp:
-                _conv(out, pre + ".downsample.0", bp["down"])
-                if batch:
-                    _bn(out, pre + ".downsample.1", bp["norm3"], bs["norm3"])
-                    _bn(out, pre + ".norm3", bp["norm3"], bs["norm3"])
-    _conv(out, prefix + ".conv2", p["conv2"])
+            _block(out, f"{pre}layer{i}.{j}.", p[f"layer{i}{suf}"],
+                   s.get(f"layer{i}{suf}", {}), norm_fn, *block)
+    _conv(out, pre + "conv2", p["conv2"])
 
 
 def _lite_encoder(out, prefix, p):
@@ -192,10 +213,10 @@ def flow_net_from_jax(f: dict, s: dict, pre: str = "") -> dict:
         _idnet(out, pre, f)
         return out
     u = f["update"]
-    _encoder(out, pre + "fnet", f["fnet"], s.get("fnet", {}), "instance")
-    _encoder(out, pre + "cnet", f["cnet"], s["cnet"], "batch")
+    _encoder(out, pre + "fnet.", f["fnet"], s.get("fnet", {}), "instance")
+    _encoder(out, pre + "cnet.", f["cnet"], s["cnet"], "batch")
     if "enet" in f:                      # DCEIFlow
-        _encoder(out, pre + "enet", f["enet"], s.get("enet", {}), "instance")
+        _encoder(out, pre + "enet.", f["enet"], s.get("enet", {}), "instance")
         for name in ("conv1", "conv2", "convo"):
             _conv(out, f"{pre}fusion.{name}", f["fusion"][name])
     else:                                # E-RAFT, RAFT: the mask head is a Sequential
@@ -212,29 +233,37 @@ def flow_net_from_jax(f: dict, s: dict, pre: str = "") -> dict:
 
 # ------------------ the library surface's trees -> state dicts ----------------
 
+def basic_encoder_from_jax(p: dict, s: dict, norm_fn: str, pre: str = "") -> dict:
+    """``basic_encoder_init``'s (params, state) -> ``nn.encoders.BasicEncoder``'s
+    keys: the residual blocks ``layer{i}.{0,1}``, BatchNorm's statistics
+    where ``norm_fn`` is 'batch', GroupNorm's ``weight`` and ``bias`` where
+    it is 'group' (``norm3`` also as ``downsample.1``)."""
+    out = {}
+    _encoder(out, pre, p, s, norm_fn)
+    return out
+
+
 def small_encoder_from_jax(p: dict, s: dict, norm_fn: str, pre: str = "") -> dict:
     """``small_encoder_init``'s (params, state) -> ``nn.encoders.SmallEncoder``'s
     keys: the bottleneck blocks ``layer{i}.{0,1}``, BatchNorm's statistics
-    where ``norm_fn`` is 'batch' (``norm4`` also as ``downsample.1``)."""
+    where ``norm_fn`` is 'batch', GroupNorm's ``weight`` and ``bias`` where
+    it is 'group' (``norm4`` also as ``downsample.1``)."""
     out = {}
-    batch = norm_fn == "batch"
-    _conv(out, pre + "conv1", p["conv1"])
-    if batch:
-        _bn(out, pre + "norm1", p["norm1"], s["norm1"])
-    for i in (1, 2, 3):
-        for j, suf in ((0, "a"), (1, "b")):
-            bp, bs, bpre = p[f"layer{i}{suf}"], s.get(f"layer{i}{suf}", {}), f"{pre}layer{i}.{j}."
-            for name in ("conv1", "conv2", "conv3"):
-                _conv(out, bpre + name, bp[name])
-            if batch:
-                for name in ("norm1", "norm2", "norm3"):
-                    _bn(out, bpre + name, bp[name], bs[name])
-            if "down" in bp:
-                _conv(out, bpre + "downsample.0", bp["down"])
-                if batch:
-                    _bn(out, bpre + "downsample.1", bp["norm4"], bs["norm4"])
-                    _bn(out, bpre + "norm4", bp["norm4"], bs["norm4"])
-    _conv(out, pre + "conv2", p["conv2"])
+    _encoder(out, pre, p, s, norm_fn, _BOTTLENECK)
+    return out
+
+
+def residual_block_from_jax(p: dict, s: dict, norm_fn: str, pre: str = "") -> dict:
+    """``residual_block_init``'s (params, state) -> ``nn.encoders.ResidualBlock``'s keys."""
+    out = {}
+    _block(out, pre, p, s, norm_fn, *_RESIDUAL)
+    return out
+
+
+def bottleneck_block_from_jax(p: dict, s: dict, norm_fn: str, pre: str = "") -> dict:
+    """``bottleneck_block_init``'s (params, state) -> ``nn.encoders.BottleneckBlock``'s keys."""
+    out = {}
+    _block(out, pre, p, s, norm_fn, *_BOTTLENECK)
     return out
 
 

@@ -336,7 +336,7 @@ def test_flow_forward_gives_dceiflow_dense_frames(train):
     slice ``gt_img0[:, :1]`` made ``2 * image - 1`` channels-last (C is 1),
     cuDNN's first conv kept that layout, and K4 refuses a non-contiguous
     input on the card."""
-    model = pf.flow_net("dceiflow", Config(image_dim=CROP), "cpu")
+    model = pf.flow_net("dceiflow", Config(model_mode="cista-eiflow", image_dim=CROP), "cpu")
     seen = []
     model.register_forward_pre_hook(
         lambda m, a, kw: seen.extend([a[1], kw.get("image2")]), with_kwargs=True)

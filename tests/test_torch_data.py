@@ -227,7 +227,8 @@ def test_reader_packs_equal_the_jax_reader(gate_dir, monkeypatch, native, forwar
         monkeypatch.setattr(readers, "event_preprocess", event_preprocess_numpy)
     seq = os.path.join(gate_dir, "sim_01")
     jr = JVR.ImageReader(JConfig(image_dim=(H, W), is_forward_flow=forward))
-    tr = readers.ImageReader(Config(image_dim=(H, W), is_forward_flow=forward))
+    tr = readers.ImageReader(Config(model_mode="cista-eiflow",
+                                    image_dim=(H, W), is_forward_flow=forward))
     jr.initialize(seq, 50)
     tr.initialize(seq, 50)
     packs = 0

@@ -56,7 +56,8 @@ def test_writers_match_the_jax_writers(tmp_path, kind):
         arg = io.make_event_preview(voxel(2), mode=mode)
         np.testing.assert_array_equal(arg, JIO.make_event_preview(voxel(2), mode=mode))
     for i in (0, 7):
-        port_cls(Config(output_folder=str(tmp_path / "port"), **kw), "m", "seq")(arg, i)
+        port_cls(Config(model_mode="cista-eiflow",
+                        output_folder=str(tmp_path / "port"), **kw), "m", "seq")(arg, i)
         jax_cls(JConfig(output_folder=str(tmp_path / "jax"), **kw), "m", "seq")(arg, i)
     files = sorted(os.path.relpath(os.path.join(r, f), tmp_path / "jax")
                    for r, _, fs in os.walk(tmp_path / "jax") for f in fs)
@@ -83,7 +84,8 @@ def test_eval_writer_csv_byte_for_byte(tmp_path):
     rel = os.path.join("model", "3", "seq", "result.csv")
     assert (tmp_path / "port" / rel).read_bytes() == (tmp_path / "jax" / rel).read_bytes()
     assert not os.path.exists(tmp_path / "off")
-    io.EvalWriter(Config(output_folder=str(tmp_path / "off"), is_write_image=False), "m", "s")(
+    io.EvalWriter(Config(model_mode="cista-eiflow",
+                         output_folder=str(tmp_path / "off"), is_write_image=False), "m", "s")(
         header, row)
     assert not os.path.exists(tmp_path / "off" / "m")
 

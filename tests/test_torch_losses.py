@@ -65,7 +65,7 @@ def _inputs(seed, bi=False, iters=3, pred_hw=(HP, WP)):
 
 def _cfgs(is_bi=False, warp_mode="forward"):
     return (JConfig(image_dim=(H, W), is_bi=is_bi, warp_mode=warp_mode),
-            Config(image_dim=(H, W), is_bi=is_bi, warp_mode=warp_mode))
+            Config(model_mode="cista-eiflow", image_dim=(H, W), is_bi=is_bi, warp_mode=warp_mode))
 
 
 def _close_grad(port, ref):

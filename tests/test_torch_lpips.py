@@ -165,7 +165,7 @@ def test_recon_loss_with_lpips_matches_jax(consis, tmp_path):
     tgt = {"gt_img1": rng.random((2, H, W, 1)).astype(np.float32),
            "gt_flow": (2.0 * rng.standard_normal((2, H, W, 2))).astype(np.float32),
            "valid": rng.random((2, H, W, 1)).astype(np.float32)}
-    jcfg, tcfg = JConfig(image_dim=(H, W)), Config(image_dim=(H, W))
+    jcfg, tcfg = JConfig(image_dim=(H, W)), Config(model_mode="cista-eiflow", image_dim=(H, W))
     jv, jg = jax.jit(jax.value_and_grad(lambda o, prev, tgt: JR.recon_loss(
         o, prev, tgt, jcfg, lpips_params=jparams, is_loss_consis=consis)[0]))(
         jnp.asarray(out), jnp.asarray(prev), {k: jnp.asarray(v) for k, v in tgt.items()})

@@ -100,7 +100,7 @@ def test_flow_evaluate(flow_valid):
         v = (np.random.default_rng(2).random(a.shape) > 0.3).astype(np.float32)
         jt["flow_valid"], tt["flow_valid"] = jnp.asarray(v), nchw(v)
     ref = JFLOW.flow_evaluate(jnp.asarray(pred), jt, JConfig())
-    out = flow_evaluate(nchw(pred), tt, Config())
+    out = flow_evaluate(nchw(pred), tt, Config(model_mode="cista-eiflow"))
     assert list(out) == list(ref) == ["photo_loss", "epe", "1px", "3px", "5px", "out"]
     assert 0.0 < float(ref["3px"]) < 1.0 and float(ref["out"]) > 0.0
     for k in out:
@@ -114,7 +114,7 @@ def test_score_matches_the_jax_eval_step():
     gt, pred = _flows(b=1)
     rec = np.clip(b[0, ..., 0] + 0.02, 0, 1)
     out = evaluate.score(rec, np.moveaxis(pred[0], -1, 0), a[0, ..., 0], b[0, ..., 0],
-                         np.moveaxis(gt[0], -1, 0), Config())
+                         np.moveaxis(gt[0], -1, 0), Config(model_mode="cista-eiflow"))
     jt = {"gt_img0": jnp.asarray(a), "gt_img1": jnp.asarray(b), "gt_flow": jnp.asarray(gt)}
     ref = {**JRECON.recon_evaluate(jnp.asarray(rec)[None, ..., None], jt["gt_img1"]),
            **JFLOW.flow_evaluate(jnp.asarray(pred), jt, JConfig())}

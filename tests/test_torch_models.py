@@ -53,7 +53,8 @@ def pair():
     at depth 5 (the ISTA block is tied, so depth only changes the loop)."""
     jcfg = JConfig(image_dim=(H, W), model_mode="cista-eiflow", depth=5)
     params, mstate = JCOMP.init(jax.random.PRNGKey(0), jcfg)
-    model = composite.init(Config(image_dim=(H, W), depth=5), device="cpu", seed=1)
+    model = composite.init(Config(model_mode="cista-eiflow",
+                                  image_dim=(H, W), depth=5), device="cpu", seed=1)
     model.load_reference_state(weights.from_jax(_np_tree(params), _np_tree(mstate)))
     return jcfg, params, mstate, model
 
@@ -164,7 +165,8 @@ def test_gate_weights_load_both_ways(name, depth):
     path = str(Path(__file__).resolve().parent.parent / "gate" / name)
     sd = weights.load_state_dict(path)
     assert all(v.dtype != np.float16 for v in sd.values())
-    model = composite.init(Config(image_dim=(H, W), depth=depth), device="cpu")
+    model = composite.init(Config(model_mode="cista-eiflow",
+                                  image_dim=(H, W), depth=depth), device="cpu")
     model.load_reference_state(sd)
     p, s = ti.composite_params(ti.load_state_dict(path), "cista-eiflow")
     back = weights.tie_ista_blocks(weights.from_jax(_np_tree(p), _np_tree(s)), depth)
@@ -175,7 +177,8 @@ def test_gate_weights_load_both_ways(name, depth):
 
 
 def test_tied_ista_block_is_one_parameter_set():
-    model = composite.init(Config(image_dim=(32, 32), depth=5), device="cpu")
+    model = composite.init(Config(model_mode="cista-eiflow",
+                                  image_dim=(32, 32), depth=5), device="cpu")
     blocks = model.cista_net.lista_blocks
     assert all(b is blocks[0] for b in blocks)
     keys = [k for k in model.state_dict() if "lista_blocks" in k]

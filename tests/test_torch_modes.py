@@ -113,7 +113,8 @@ def test_no_flow_steps_match_jax(mode):
 def flagship():
     name, depth, iters = ANCHORS["cista-eiflow"]
     p, s = ti.composite_params(ti.load_state_dict(str(GATE / name)), "cista-eiflow")
-    model = composite.init(Config(image_dim=(H, W), depth=depth, flow_half=True), device="cpu")
+    model = composite.init(Config(model_mode="cista-eiflow",
+                                  image_dim=(H, W), depth=depth, flow_half=True), device="cpu")
     model.load_reference_state(weights.load_state_dict(str(GATE / name)))
     return p, s, model, depth, iters
 

@@ -291,7 +291,8 @@ def test_mvsec_main_parses_the_sensor_flag(recordings, tmp_path, monkeypatch):
     with pytest.raises(SystemExit):
         test_mvsec.main(["--path_to_test_data", str(tmp_path), "--mvsec_sensor_size", "48", "64"])
     assert seen["cfg"].num_events == 3000
-    assert test_mvsec.discover_mvsec(Config(path_to_test_data=str(recordings["port"].parent))) \
+    assert test_mvsec.discover_mvsec(Config(model_mode="cista-eiflow",
+                                            path_to_test_data=str(recordings["port"].parent))) \
         == ([str(recordings["port"])], [SPLIT])
 
 

@@ -465,7 +465,7 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
-        Reconstructor(Config(image_dim=(32, 32), depth=1, flow_iters=1))
+        Reconstructor(Config(model_mode="cista-eiflow", image_dim=(32, 32), depth=1, flow_iters=1))
 
 
 def _imports(path: Path):

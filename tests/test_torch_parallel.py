@@ -72,7 +72,8 @@ VIDEOS = 9             # 9 chunks of 3 steps: every split below is uneven
 @pytest.fixture(scope="module")
 def shard_data(tmp_path_factory):
     idx = write_train_dataset(str(tmp_path_factory.mktemp("shard")), VIDEOS, 4, LH, LW, seed=2)
-    kw = dict(image_dim=(LH, LW), path_to_train_data=os.path.dirname(idx), len_sequence=3)
+    kw = dict(image_dim=(LH, LW), model_mode="cista-eiflow",
+              path_to_train_data=os.path.dirname(idx), len_sequence=3)
     return (JTL.TrainSequenceDataset(idx, JConfig(**kw)),
             TTL.TrainSequenceDataset(idx, Config(**kw)))
 
@@ -478,8 +479,9 @@ def _train(data, out, *extra):
     """``python -m cista_flow_torch.train`` (its ``main``) on the tiny set:
     one epoch of phase 1 (the flow net trains, cnet's BatchNorm in train
     mode), a host batch of 2, with full-state saves."""
-    return train.main(["--device", "cpu", "--path_to_train_data", str(data), "--path_to_model",
-                       str(out), "--image_dim", str(H), str(W), "-c", "16", "-d", "2",
+    return train.main(["--device", "cpu", "--model_mode", "cista-eiflow",
+                       "--path_to_train_data", str(data), "--path_to_model", str(out),
+                       "--image_dim", str(H), str(W), "-c", "16", "-d", "2",
                        "--flow_iters", "2", "-s", "3", "--batch_size", "2", "--orbax_ckpt",
                        *extra])
 

@@ -95,7 +95,7 @@ def test_flow_net_from_jax_is_the_jax_export(arch):
     assert sorted(ours) == sorted(theirs)
     for k in theirs:
         np.testing.assert_array_equal(ours[k], np.asarray(theirs[k]), err_msg=k)
-    model = flow_net(arch, Config(), device="cpu")
+    model = flow_net(arch, Config(model_mode="cista-eiflow"), device="cpu")
     assert sorted(model.state_dict()) == sorted(ours)
     model.load_state_dict({k: torch.tensor(v) for k, v in ours.items()}, strict=True)
 
@@ -110,7 +110,7 @@ def test_flow_net_init_matches_jax():
     from cista_flow_torch.pretrain_flow import flow_net
     params, state = np_tree(JE.init(jax.random.PRNGKey(2), JConfig(image_dim=(32, 32))))
     ref = weights.flow_net_from_jax(params, state)
-    got = flow_net("eraft", Config(), device="cpu").state_dict()
+    got = flow_net("eraft", Config(model_mode="cista-eiflow"), device="cpu").state_dict()
     checked = 0
     for k, v in ref.items():
         if k.endswith(".weight") and v.ndim == 4 and v.size >= 4096:

@@ -116,7 +116,7 @@ def test_image_reader_packs_match_jax(tmp_path, sequence, single_file, pack, mod
     pack, the GT frame (and the GT flows) bit for bit, and the same end."""
     seq = make_sequence(str(tmp_path), sequence, single_file)
     jr = JVR.ImageReader(JConfig(image_dim=(H, W)))
-    tr = readers.ImageReader(Config(image_dim=(H, W)))
+    tr = readers.ImageReader(Config(model_mode="cista-eiflow", image_dim=(H, W)))
     jr.initialize(seq, -1)
     tr.initialize(seq, -1)
     args = (mode,) if limit is None else (limit, mode)
@@ -152,7 +152,7 @@ def test_events_outside_the_frame_are_dropped(tmp_path, sequence):
     ev[far[::-1], 2] += H
     write_stream(os.path.join(seq, "events.zip"), ev, "%.9f", False)
     jr = JVR.ImageReader(JConfig(image_dim=(H, W)))
-    tr = readers.ImageReader(Config(image_dim=(H, W)))
+    tr = readers.ImageReader(Config(model_mode="cista-eiflow", image_dim=(H, W)))
     jr.initialize(seq, -1)
     tr.initialize(seq, -1)
     while not jr.ending:
@@ -169,7 +169,8 @@ def test_jpeg_frames_raise(tmp_path):
     (seq / "frame_0001.jpg").write_bytes(b"\xff\xd8\xff")
     (seq / "timestamps.txt").write_text("frame_0000 0.0\nframe_0001 0.04\n")
     with pytest.raises(ValueError, match="JPEG"):
-        readers.ImageReader(Config(image_dim=(H, W))).initialize(str(seq))
+        readers.ImageReader(Config(model_mode="cista-eiflow",
+                                   image_dim=(H, W))).initialize(str(seq))
 
 
 def test_zip_stream_with_several_members_raises(tmp_path):

@@ -35,7 +35,8 @@ def test_step_window_matches_jax(path, iters, depth):
     jr = JReconstructor(JConfig(image_dim=(H, W), model_mode="cista-eiflow",
                                 depth=depth, flow_iters=iters, path_to_test_model=path))
     jrecs, jflows = jr.step_window(list(voxels), return_all=True)
-    tr = Reconstructor(Config(image_dim=(H, W), depth=depth, flow_iters=iters,
+    tr = Reconstructor(Config(model_mode="cista-eiflow",
+                              image_dim=(H, W), depth=depth, flow_iters=iters,
                               path_to_test_model=path), device="cpu")
     recs, flows = tr.step_window(voxels, return_all=True)
     assert recs.shape == (T, H, W) and flows.shape == (T, 2, H, W)
@@ -47,7 +48,7 @@ def test_step_window_matches_jax(path, iters, depth):
 
 
 def test_step_window_equals_sequential_steps():
-    cfg = Config(image_dim=(H, W), depth=1, flow_iters=1,
+    cfg = Config(model_mode="cista-eiflow", image_dim=(H, W), depth=1, flow_iters=1,
                  path_to_test_model=POINTS[0][0])
     voxels = _voxels(2)
     r1 = Reconstructor(cfg, device="cpu")
@@ -64,7 +65,7 @@ def test_step_window_equals_sequential_steps():
 def test_batched_streams_match_single_streams():
     """A batch of streams computes each stream as alone (the chip's frames/s
     are measured at batch 8)."""
-    cfg = Config(image_dim=(H, W), depth=1, flow_iters=1,
+    cfg = Config(model_mode="cista-eiflow", image_dim=(H, W), depth=1, flow_iters=1,
                  path_to_test_model=POINTS[0][0])
     voxels = _voxels(3, batch=2)
     recs, flows = Reconstructor(cfg, device="cpu", batch=2).step_window(
@@ -81,7 +82,8 @@ def test_bf16_stays_close_to_f32():
     voxels = _voxels(4)
     out = {}
     for dtype in ("float32", "bfloat16"):
-        cfg = Config(image_dim=(H, W), depth=1, flow_iters=1, dtype=dtype,
+        cfg = Config(model_mode="cista-eiflow",
+                     image_dim=(H, W), depth=1, flow_iters=1, dtype=dtype,
                      path_to_test_model=POINTS[0][0])
         out[dtype], _ = Reconstructor(cfg, device="cpu").step_window(voxels, return_all=True)
     assert np.isfinite(out["bfloat16"]).all()
@@ -109,7 +111,8 @@ def test_frame_under_64_px_matches_jax():
     jr = JReconstructor(JConfig(image_dim=(32, 48), model_mode="cista-eiflow",
                                 depth=depth, flow_iters=iters, path_to_test_model=path))
     jrecs, jflows = jr.step_window(list(voxels), return_all=True)
-    tr = Reconstructor(Config(image_dim=(32, 48), depth=depth, flow_iters=iters,
+    tr = Reconstructor(Config(model_mode="cista-eiflow",
+                              image_dim=(32, 48), depth=depth, flow_iters=iters,
                               path_to_test_model=path), device="cpu")
     recs, flows = tr.step_window(voxels, return_all=True)
     assert np.abs(flows).max() > 0

@@ -8,7 +8,7 @@
   tests/test_native_events.py holds the JAX library), the triangular voxel
   bit for bit the JAX library's; a missing or failing compiler raises,
   naming it; the port never loads the JAX package's library.
-- ``SmallEncoder`` (instance, batch and no norm, 48x64), ``SmallUpdateBlock``,
+- ``SmallEncoder`` (instance, batch, group and no norm, 48x64), ``SmallUpdateBlock``,
   ``lookup_efficient_corr`` (against the JAX function and against the
   port's materialised ``lookup_corr``) and the cell variants, each against
   its JAX counterpart (jitted) with the weights carried over by
@@ -246,7 +246,7 @@ def random_tree(init, *args, seed=0):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-@pytest.mark.parametrize("norm_fn", ["instance", "batch", "none"])
+@pytest.mark.parametrize("norm_fn", ["instance", "batch", "none", "group"])
 def test_small_encoder_matches_jax(norm_fn):
     rng = np.random.default_rng(1)
     p, s = random_tree(JENC.small_encoder_init, 3, 128, norm_fn, seed=3)

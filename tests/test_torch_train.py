@@ -486,7 +486,8 @@ def test_train_cli_runs_every_phase_and_writes_reference_checkpoints(tmp_path, c
     from cista_flow_torch import train
     data = tmp_path / "data"
     write_train_dataset(str(data), 2, 4, H, W, seed=1)
-    assert train.main(["--device", "cpu", "--path_to_train_data", str(data),
+    assert train.main(["--device", "cpu", "--model_mode", "cista-eiflow",
+                       "--path_to_train_data", str(data),
                        "--path_to_model", str(tmp_path / "models"), "--image_dim", str(H), str(W),
                        "-c", "16", "-d", "2", "--flow_iters", "2", "-s", "3", "--batch_size", "2",
                        "--flow_epoch", "1", "--rec_epoch", "1", "--epochs", "5"]) == 0

@@ -66,7 +66,7 @@ def test_warp_inputs_matches_jax(code_channels, flow_kind):
     jcfg = JConfig(image_dim=(h, w), model_mode="cista-eiflow")
     ji, jst = JCOMP._warp_inputs(jnp.asarray(rec), jstate, jnp.asarray(flow), jcfg)
     tstate = CistaState(*(nchw(a) for a in (other, code, other, other)))
-    owner = SimpleNamespace(cfg=Config(image_dim=(h, w)))
+    owner = SimpleNamespace(cfg=Config(model_mode="cista-eiflow", image_dim=(h, w)))
     ti, tst = TCOMP._Composite._warp_inputs(owner, nchw(rec), tstate, nchw(flow))
     close(nhwc(ti), ji)
     close(nhwc(tst.sparse_code), jst.sparse_code)
