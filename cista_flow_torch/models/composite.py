@@ -30,6 +30,7 @@ from ..ops import bands
 from ..ops.pad import padder_for
 from ..ops.resize import interpolate_scale
 from ..ops.warp import frame_warp
+from ..utils.profiling import annotate
 from .cista_lstc import CistaLSTC, CistaState
 from .cista_lstc import zero_state as _cista_zero_state
 from .dceiflow import DCEIFlow
@@ -93,9 +94,11 @@ class _Composite(nn.Module):
         return warped_i, state._replace(sparse_code=warped_z)
 
     def reconstruct(self, events, rec_img0, state: CistaState, flow_final, half_flow=None):
-        """Warp along ``flow_final``, then CISTA-LSTC: (rec, new_state)."""
-        warped_i, state = self._warp_inputs(rec_img0, state, flow_final, half_flow)
-        return self.cista_net(events, warped_i, state)
+        """Warp along ``flow_final``, then CISTA-LSTC: (rec, new_state); the
+        span ``reconstruct`` while a profiler records."""
+        with annotate("reconstruct"):
+            warped_i, state = self._warp_inputs(rec_img0, state, flow_final, half_flow)
+            return self.cista_net(events, warped_i, state)
 
 
 def _warp_flow(batch_flow: dict, batch_gt, fix_net_name):
@@ -149,16 +152,18 @@ class CistaEIFlow(_Composite):
             if batch_gt.get("gt_img1") is not None or event_voxel_bw is not None:
                 raise ValueError("flow_half serves and runs rec-phase graphs only: it takes "
                                  "no gt_img1 and no event_voxel_bw")
-            batch_flow = dict(self.event_flownet(
-                bands.rescale(events, 1, 2, align_corners=False),
-                bands.rescale(image1, 1, 2, align_corners=False), iters=iters,
-                collect_preds=collect_preds))
-            half = batch_flow["flow_final"]
-            batch_flow["flow_final"] = 2.0 * bands.rescale(half, 2, 1, align_corners=True)
+            with annotate("flownet"):
+                batch_flow = dict(self.event_flownet(
+                    bands.rescale(events, 1, 2, align_corners=False),
+                    bands.rescale(image1, 1, 2, align_corners=False), iters=iters,
+                    collect_preds=collect_preds))
+                half = batch_flow["flow_final"]
+                batch_flow["flow_final"] = 2.0 * bands.rescale(half, 2, 1, align_corners=True)
         else:
-            batch_flow = self.event_flownet(
-                events, image1, iters=iters, collect_preds=collect_preds,
-                image2=batch_gt.get("gt_img1"), reversed_event_voxel=event_voxel_bw)
+            with annotate("flownet"):
+                batch_flow = self.event_flownet(
+                    events, image1, iters=iters, collect_preds=collect_preds,
+                    image2=batch_gt.get("gt_img1"), reversed_event_voxel=event_voxel_bw)
         flow_final = _warp_flow(batch_flow, batch_gt, fix_net_name)
         half_flow = None
         if half is not None and "gt_flow" not in batch_gt and self.cfg.scale_factor == 0.5:
@@ -188,8 +193,9 @@ class CistaERAFT(_Composite):
         (cista_flow_tpu/models/composite.py:183-192)."""
         iters = iters if iters is not None else self.cfg.default_flow_iters()
         self.event_flownet.train(self.training and fix_net_name != "flow")
-        batch_flow = self.event_flownet(event_voxel_old, events, iters=iters,
-                                        collect_preds=collect_preds)
+        with annotate("flownet"):
+            batch_flow = self.event_flownet(event_voxel_old, events, iters=iters,
+                                            collect_preds=collect_preds)
         rec, new_state = self.reconstruct(
             events, rec_img0, state, _warp_flow(batch_flow, batch_gt, fix_net_name))
         return rec, batch_flow, new_state
@@ -206,9 +212,10 @@ class CistaERAFT(_Composite):
         net = self.event_flownet
         padder = padder_for(voxel_seq.shape[3:], min_size=32)
         padded = padder.pad(voxel_seq.reshape(t1 * b, *voxel_seq.shape[2:]))
-        fmaps = net.fnet(padded)
-        fmap1, fmap2 = fmaps[:t_len * b], fmaps[b:]
-        cnet = net.cnet(padded[b:])
+        with annotate("flownet.encode"):
+            fmaps = net.fnet(padded)
+            fmap1, fmap2 = fmaps[:t_len * b], fmaps[b:]
+            cnet = net.cnet(padded[b:])
         old = voxel_seq[:-1].reshape(t_len * b, *voxel_seq.shape[2:])
         new = voxel_seq[1:].reshape(t_len * b, *voxel_seq.shape[2:])
 
@@ -233,7 +240,8 @@ class CistaERAFT(_Composite):
         to T calls of ``forward``. Returns (recs (T, B, 1, H, W), flows
         (T, B, 2, H, W), state)."""
         iters = iters if iters is not None else self.cfg.default_flow_iters()
-        flows = self.window_flows(voxel_seq, iters)
+        with annotate("flownet"):
+            flows = self.window_flows(voxel_seq, iters)
         recs, rec = [], rec0
         for events, flow in zip(voxel_seq[1:], flows):
             rec, state = self.reconstruct(events, rec, state, flow)
@@ -260,8 +268,9 @@ class CistaIDNet(_Composite):
         predicted flow reaches them detached under ``fix_net_name='flow'``.
         Returns (rec, batch_flow, new_state)."""
         iters = iters if iters is not None else self.cfg.default_flow_iters()
-        batch_flow = self.event_flownet(events, flow_init=flow_init, iters=iters,
-                                        collect_preds=collect_preds)
+        with annotate("flownet"):
+            batch_flow = self.event_flownet(events, flow_init=flow_init, iters=iters,
+                                            collect_preds=collect_preds)
         # the warps take an f32 flow; in bf16 the flow net's is bf16
         flow_final = _warp_flow(batch_flow, batch_gt, fix_net_name).float()
         rec, new_state = self.reconstruct(events, rec_img0, state, flow_final)

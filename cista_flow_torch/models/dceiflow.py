@@ -26,6 +26,7 @@ from ..ops import corr as CORR
 from ..ops import cuda_corr
 from ..ops.conv import conv2d
 from ..ops.pad import padder_for
+from ..utils.profiling import annotate
 
 HDIM = 128
 CDIM = 128
@@ -64,32 +65,35 @@ class DCEIFlow(nn.Module):
     def _iterate(self, net, inp, pyr, coords0, coords1, emap, iters,
                  collect_preds):
         """``collect_preds`` keeps every iteration's upsampled flow (the
-        training loss needs them); serving keeps only the last."""
-        ub = self.update_block
-        ema = ub.precompute_update_ema(emap)
-        convc1 = ub.encoder.convc1
-        preds = []
-        for _ in range(iters):
-            coords1 = coords1.detach()     # as RAFT: no gradient through the lookup point
-            cor = cuda_corr.lookup(pyr, coords1, convc1.weight, convc1.bias)
-            net, delta = ub(net, inp, cor, ema, coords1 - coords0)
-            coords1 = coords1 + delta
-            if collect_preds:
+        training loss needs them); serving keeps only the last. The span
+        ``flownet.update`` while a profiler records."""
+        with annotate("flownet.update"):
+            ub = self.update_block
+            ema = ub.precompute_update_ema(emap)
+            convc1 = ub.encoder.convc1
+            preds = []
+            for _ in range(iters):
+                coords1 = coords1.detach()     # as RAFT: no gradient through the lookup point
+                cor = cuda_corr.lookup(pyr, coords1, convc1.weight, convc1.bias)
+                net, delta = ub(net, inp, cor, ema, coords1 - coords0)
+                coords1 = coords1 + delta
+                if collect_preds:
+                    preds.append(bands.upflow(coords1 - coords0, self.ds))
+            if not collect_preds:
                 preds.append(bands.upflow(coords1 - coords0, self.ds))
-        if not collect_preds:
-            preds.append(bands.upflow(coords1 - coords0, self.ds))
-        return coords1, torch.stack(preds)
+            return coords1, torch.stack(preds)
 
     def _single_direction(self, emap, fmap1, im1, iters, flow_init, collect_preds):
         """Fusion, pyramid, context encoder and the GRU iterations from one
         frame's features: (flow at 1/8, flow_preds, pseudo second-frame
         features)."""
-        pseudo_fmap2 = self.fusion(fmap1, emap)
-        pyr = CORR.build_corr_pyramid(fmap1, bands.gather(pseudo_fmap2, self.ds, padded=True),
-                                      CORR_LEVELS)
-        cnet = self.cnet(im1)
-        net = torch.tanh(cnet[:, :HDIM])
-        inp = torch.relu(cnet[:, HDIM:])
+        with annotate("flownet.encode"):
+            pseudo_fmap2 = self.fusion(fmap1, emap)
+            pyr = CORR.build_corr_pyramid(
+                fmap1, bands.gather(pseudo_fmap2, self.ds, padded=True), CORR_LEVELS)
+            cnet = self.cnet(im1)
+            net = torch.tanh(cnet[:, :HDIM])
+            inp = torch.relu(cnet[:, HDIM:])
 
         b, _, h, w = im1.shape
         coords0 = CORR.coords_grid(b, h // self.ds, w // self.ds, im1.device,
@@ -111,12 +115,13 @@ class DCEIFlow(nn.Module):
         padder = padder_for(event_voxel.shape[2:], min_size=32)
         im1 = padder.pad(2.0 * image1 - 1.0)
         ev = padder.pad(event_voxel)
-        emap = self.enet(ev)
-        if image2 is not None:
-            im2 = padder.pad(2.0 * image2.to(image1.dtype) - 1.0)   # the frames' dtype
-            fmap1, fmap2 = self.fnet(torch.cat([im1, im2])).chunk(2)
-        else:
-            fmap1 = self.fnet(im1)
+        with annotate("flownet.encode"):
+            emap = self.enet(ev)
+            if image2 is not None:
+                im2 = padder.pad(2.0 * image2.to(image1.dtype) - 1.0)   # the frames' dtype
+                fmap1, fmap2 = self.fnet(torch.cat([im1, im2])).chunk(2)
+            else:
+                fmap1 = self.fnet(im1)
 
         flow_lowres, flow_preds, pseudo_fmap2 = self._single_direction(
             emap, fmap1, im1, iters, flow_init, collect_preds)
@@ -126,7 +131,8 @@ class DCEIFlow(nn.Module):
             return out
         out.update(fmap2_gt=fmap2, fmap2_pseudo=pseudo_fmap2)
         if reversed_event_voxel is not None:
-            remap = self.enet(padder.pad(reversed_event_voxel))
+            with annotate("flownet.encode"):
+                remap = self.enet(padder.pad(reversed_event_voxel))
             # the JAX package drops the backward call's BN statistics
             with _running_stats_kept(self.cnet):
                 _, flow_preds_bw, pseudo_fmap1 = self._single_direction(

@@ -22,6 +22,7 @@ from ..ops import bands
 from ..ops import corr as CORR
 from ..ops import cuda_corr
 from ..ops.pad import padder_for
+from ..utils.profiling import annotate
 
 HDIM = 128
 CDIM = 128
@@ -39,10 +40,12 @@ class ERAFT(nn.Module):
 
     def encode(self, im1, im2):
         """(fmap1, fmap2, cnet) of padded voxels: fnet on both in one 2B
-        call, cnet on the newer."""
-        b = im1.shape[0]
-        fmaps = self.fnet(torch.cat([im1, im2], 0))
-        return fmaps[:b], fmaps[b:], self.cnet(im2)
+        call, cnet on the newer; the span ``flownet.encode`` while a
+        profiler records."""
+        with annotate("flownet.encode"):
+            b = im1.shape[0]
+            fmaps = self.fnet(torch.cat([im1, im2], 0))
+            return fmaps[:b], fmaps[b:], self.cnet(im2)
 
     def forward(self, voxel_old, voxel_new, iters: int = 12, flow_init=None,
                 collect_preds: bool = False, encoded=None):
@@ -60,29 +63,34 @@ class ERAFT(nn.Module):
 
     def iterate(self, fmap1, fmap2, cnet, iters, flow_init=None, collect_preds=False):
         """The pyramid, the GRU iterations and the convex upsampling from
-        encoded features: (flow at 1/8, flow_preds (n, B, 2, 8h, 8w))."""
-        pyr = CORR.build_corr_pyramid(fmap1, bands.gather(fmap2, 8, padded=True), CORR_LEVELS)
-        net = torch.tanh(cnet[:, :HDIM])
-        inp = torch.relu(cnet[:, HDIM:])
+        encoded features: (flow at 1/8, flow_preds (n, B, 2, 8h, 8w)). The
+        pyramid is in the span ``flownet.encode``, the iterations and the
+        upsampling in ``flownet.update``, while a profiler records."""
+        with annotate("flownet.encode"):
+            pyr = CORR.build_corr_pyramid(fmap1, bands.gather(fmap2, 8, padded=True),
+                                          CORR_LEVELS)
+            net = torch.tanh(cnet[:, :HDIM])
+            inp = torch.relu(cnet[:, HDIM:])
 
         b, _, h8, w8 = fmap1.shape
         coords0 = CORR.coords_grid(b, h8, w8, fmap1.device, bands.first_row(8, padded=True))
         coords1 = coords0 if flow_init is None else coords0 + flow_init
-        ub = self.update_block
-        convc1 = ub.encoder.convc1
-        mask = torch.zeros((b, 64 * 9, h8, w8), dtype=fmap1.dtype,
-                           device=fmap1.device)
-        preds = []
-        for _ in range(iters):
-            # each iteration's coordinates enter without a gradient, as RAFT
-            # trains (cista_flow_tpu/models/eraft.py:113)
-            coords1 = coords1.detach()
-            cor = cuda_corr.lookup(pyr, coords1, convc1.weight, convc1.bias)
-            net, mask, delta = ub(net, inp, cor, coords1 - coords0,
-                                  corr_projected=True)
-            coords1 = coords1 + delta
-            if collect_preds:
+        with annotate("flownet.update"):
+            ub = self.update_block
+            convc1 = ub.encoder.convc1
+            mask = torch.zeros((b, 64 * 9, h8, w8), dtype=fmap1.dtype,
+                               device=fmap1.device)
+            preds = []
+            for _ in range(iters):
+                # each iteration's coordinates enter without a gradient, as RAFT
+                # trains (cista_flow_tpu/models/eraft.py:113)
+                coords1 = coords1.detach()
+                cor = cuda_corr.lookup(pyr, coords1, convc1.weight, convc1.bias)
+                net, mask, delta = ub(net, inp, cor, coords1 - coords0,
+                                      corr_projected=True)
+                coords1 = coords1 + delta
+                if collect_preds:
+                    preds.append(bands.convex_upsample(coords1 - coords0, mask, 8))
+            if not collect_preds:
                 preds.append(bands.convex_upsample(coords1 - coords0, mask, 8))
-        if not collect_preds:
-            preds.append(bands.convex_upsample(coords1 - coords0, mask, 8))
-        return coords1 - coords0, torch.stack(preds)
+            return coords1 - coords0, torch.stack(preds)

@@ -13,10 +13,15 @@ recomputes the plain version from them under ``enable_grad`` and returns
 A wrapper calls ``apply_kernel``: where grad mode is off or no input requires
 a gradient, the forward runs directly and nothing is saved, so serving
 launches exactly as before.
+
+While a profiler records, each backward is the span ``backward.<kernel>``
+(``utils.profiling``), which ``profile_step --train`` reads.
 """
 from __future__ import annotations
 
 import torch
+
+from ..utils.profiling import annotate
 
 
 def wants_grad(*tensors) -> bool:
@@ -59,21 +64,22 @@ class KernelFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         from . import bands
-        inputs = ctx.saved_tensors       # a remat recompute runs here, on the step's band
-        wanted = ctx.needs_input_grad[3:]
-        # the plain version runs on the inputs as they were given: a row
-        # band's kernels take a band already widened, with no exchange
-        with torch.enable_grad(), bands.local():
-            xs = [None if t is None else t.detach().requires_grad_(need)
-                  for t, need in zip(inputs, wanted)]
-            outs = ctx.plain(*xs)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad and g is not None]
-        leaves = [x for x, need in zip(xs, wanted) if need]
-        got = iter(torch.autograd.grad([o for o, _ in pairs], leaves,
-                                       [g for _, g in pairs], allow_unused=True)
-                   if pairs and leaves else [None] * len(leaves))
-        return (None, None, None, *[next(got) if need else None for need in wanted])
+        with annotate(f"backward.{ctx.kernel}"):
+            inputs = ctx.saved_tensors       # a remat recompute runs here, on the step's band
+            wanted = ctx.needs_input_grad[3:]
+            # the plain version runs on the inputs as they were given: a row
+            # band's kernels take a band already widened, with no exchange
+            with torch.enable_grad(), bands.local():
+                xs = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(inputs, wanted)]
+                outs = ctx.plain(*xs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad and g is not None]
+            leaves = [x for x, need in zip(xs, wanted) if need]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], leaves,
+                                           [g for _, g in pairs], allow_unused=True)
+                       if pairs and leaves else [None] * len(leaves))
+            return (None, None, None, *[next(got) if need else None for need in wanted])
 
 
 def apply_kernel(name: str, forward, plain, *inputs):

@@ -11,12 +11,14 @@ Prints, per phase:
  * device ms of the forward (the unroll and its losses), the backward and
    the optimizer step, from CUDA events around each in a step the profiler
    does not trace;
- * the forward by stage, from CUDA events around the stage modules
-   (``profile_step.StageTimer``);
+ * the forward by the program's spans (``utils.profiling.annotate``: the
+   flow net, its encoders and its GRU iterations, the warps and
+   CISTA-LSTC), the device ms of the work launched inside each in a traced
+   forward (``trace_tools.span_summary``);
  * K1-K5: each kernel's device ms in the forward (its kernels' time in a
-   torch.profiler trace) and in the backward (CUDA events around
-   ``KernelFunction.backward``: the plain version's recompute and its
-   adjoint);
+   torch.profiler trace) and in the backward (the work launched inside the
+   spans ``backward.K<n>`` of ``KernelFunction.backward``: the plain
+   version's recompute and its adjoint);
  * the ten largest device operations of the backward (a profiler trace
    over ``loss.backward()``);
  * the device-busy share: the kernel sum of a traced step over the host
@@ -34,10 +36,9 @@ import torch
 from . import weights
 from .config import Config
 from .device import DTYPES, cudnn_fp32
-from .models import composite, dceiflow
-from .ops import autograd as AG
+from .models import composite
 from .parallel import train_step as TS
-from .profile_step import MODULES, StageTimer
+from .utils import profiling, trace_tools
 
 H, W = 180, 240
 # kernel -> the names of its CUDA kernels (csrc/*.cu), K3's first: its
@@ -48,6 +49,7 @@ KERNEL_NAMES = {"K3": ("ista_conv_mma_kernel", "regroup_kernel", "conv3x3_reflec
                 "K4": ("instance_norm_",),
                 "K5": ("conv3x3_mma_kernel", "conv3x3_kernel")}
 PHASES = (("rec", "both", "phase 3, flow half"), ("flow", "rec", "phase 2"))
+LOGDIR = "build/profile_train"
 
 
 def kernel_of(name: str):
@@ -75,33 +77,6 @@ def seeded_sequence(t_len: int, batch: int, bins: int, seed: int = 0) -> dict:
             "gt_img1": frames[1:].contiguous(), "gt_flow": flow}
 
 
-class BackwardTimer:
-    """While open, every ``KernelFunction.backward`` runs inside CUDA events
-    (summed per kernel) and a profiler range ``backward K<n>`` (whose
-    device time a trace sums from the kernels launched in it)."""
-
-    def __init__(self):
-        self.spans = {}
-        self.original = AG.KernelFunction.backward
-
-        def timed(ctx, *grads):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            with torch.profiler.record_function(f"backward {ctx.kernel}"):
-                out = self.original(ctx, *grads)
-            b.record()
-            self.spans.setdefault(ctx.kernel, []).append((a, b))
-            return out
-        AG.KernelFunction.backward = staticmethod(timed)
-
-    def ms(self):
-        torch.cuda.synchronize()
-        return {k: (sum(a.elapsed_time(b) for a, b in v), len(v)) for k, v in self.spans.items()}
-
-    def close(self):
-        AG.KernelFunction.backward = staticmethod(self.original)
-
-
 def run_phase(model, cfg, seq, fix, mode, tag, smi):
     dtype = DTYPES[cfg.dtype]
     opt = TS.make_optimizer(model, 1e-4)
@@ -124,57 +99,42 @@ def run_phase(model, cfg, seq, fix, mode, tag, smi):
         with TS.parameters_as(model, dtype):
             return TS.unroll_loss(model, seq, cfg, mode, fix, False, dtype)
 
-    # an untimed-by-profiler step: CUDA events around its parts, the stages
-    # and the kernels' backward
+    # an untraced step: CUDA events around its parts
     opt.zero_grad(set_to_none=True)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    timer = StageTimer(model, MODULES["cista-eiflow"],
-                       [("pyramid", dceiflow.CORR, "build_corr_pyramid")])
-    backward = BackwardTimer()
-    try:
-        with precision():
-            ev[0].record()
-            loss = forward()
-            ev[1].record()
-            timer.close()
-            loss.backward()
-            ev[2].record()
-        TS.optimizer_step(model, opt)
-        ev[3].record()
-        stages, kernel_bw = timer.ms(), backward.ms()
-    finally:
-        timer.close()
-        backward.close()
+    with precision():
+        ev[0].record()
+        loss = forward()
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+    TS.optimizer_step(model, opt)
+    ev[3].record()
+    torch.cuda.synchronize()
     fwd, bwd, upd = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
 
-    # a traced step: the kernels of the forward and of the backward
+    # a traced step: the kernels and the program's spans of the forward and
+    # of the backward
     opt.zero_grad(set_to_none=True)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ranges = BackwardTimer()
-    try:
-        with precision():
-            with torch.profiler.profile(activities=acts) as fprof:
-                traced = forward()
-                torch.cuda.synchronize()
-            with torch.profiler.profile(activities=acts) as bprof:
-                traced.backward()
-                torch.cuda.synchronize()
-    finally:
-        ranges.close()
+    fdir, bdir = f"{LOGDIR}/{fix}_{mode}_forward", f"{LOGDIR}/{fix}_{mode}_backward"
+    with precision():
+        with profiling.trace(fdir) as fprof:
+            traced = forward()
+            torch.cuda.synchronize()
+        with profiling.trace(bdir) as bprof:
+            traced.backward()
+            torch.cuda.synchronize()
     opt.zero_grad(set_to_none=True)
+    stages = {r[0]: r[3] for r in trace_tools.span_summary(fdir)}
+    kernel_bw = {r[0].split(".")[-1]: (r[3], int(r[1])) for r in trace_tools.span_summary(bdir)}
 
     def kernels(prof):
-        """The device's kernels and copies; not the ranges' own spans on the
+        """The device's kernels and copies; not the spans' own copies on the
         device timeline (user annotations), which a trace lists beside them."""
         return [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.key.startswith("backward K")]
+                and not e.key.startswith(profiling.PREFIX)]
     fk, bk = kernels(fprof), kernels(bprof)
-    # a range's host-side event sums the device time of the kernels its ops launched
-    kernel_bw_device = {e.key.split()[-1]: e.device_time_total / 1e3
-                        for e in bprof.key_averages()
-                        if e.key.startswith("backward K")
-                        and e.device_type == torch.autograd.DeviceType.CPU}
     kernel_fw = {}
     for e in fk:
         key = kernel_of(e.key)
@@ -192,25 +152,25 @@ def run_phase(model, cfg, seq, fix, mode, tag, smi):
           + ", ".join(f"{w:.2f}" for w in walls) + ")")
     print(f"  device busy {busy:.2f} ms of kernels in the traced forward + backward, "
           f"{100 * busy / wall:.1f}% of the untraced step's host wall")
-    enc = sum(stages[f"event_flownet.{n}"] for n in ("enet", "fnet", "cnet", "fusion"))
-    rows = [(n, stages[f"event_flownet.{n}"]) for n in ("enet", "fnet", "cnet", "fusion")]
-    rows += [("pyramid", stages["pyramid"]),
-             ("update block x iters", stages["event_flownet.update_block"]),
-             ("flow net, other", stages["event_flownet"] - enc - stages["pyramid"]
-              - stages["event_flownet.update_block"]),
-             ("cista_lstc", stages["cista_net"]),
-             ("warps and losses", fwd - stages["event_flownet"] - stages["cista_net"])]
-    print("  forward by stage, device ms (CUDA events):")
+    f_busy = sum(e.device_time_total for e in fk) / 1e3
+    rows = [("flownet", stages.get("flownet", 0.0)),
+            ("  flownet.encode", stages.get("flownet.encode", 0.0)),
+            ("  flownet.update", stages.get("flownet.update", 0.0)),
+            ("reconstruct", stages.get("reconstruct", 0.0)),
+            ("losses and the rest", f_busy - stages.get("flownet", 0.0)
+             - stages.get("reconstruct", 0.0))]
+    print(f"  forward by span, device ms launched inside (traced forward, {f_busy:.2f} ms of "
+          "device work):")
     for name, v in rows:
-        print(f"    {name:<22s} {v:9.2f}  {100 * v / fwd:5.1f}%")
+        print(f"    {name:<22s} {v:9.2f}  {100 * v / f_busy:5.1f}%")
     print("  kernels: forward, kernel ms (profiler); backward (plain recompute + adjoint), "
-          "kernel ms of its range (profiler) and span ms (CUDA events, gaps included):")
+          "device ms launched inside its spans backward.K<n> (profiler):")
     for key in ("K1", "K2", "K3", "K4", "K5"):
         f_ms, f_n = kernel_fw.get(key, (0.0, 0))
         b_ms, b_n = kernel_bw.get(key, (0.0, 0))
         print(f"    {key}: forward {f_ms:8.2f} ms ({f_n} CUDA kernels); backward "
-              f"{kernel_bw_device.get(key, 0.0):8.2f} ms of kernels, span {b_ms:8.2f} ms "
-              f"({b_n} calls, {100 * b_ms / bwd:5.1f}% of the backward's span)")
+              f"{b_ms:8.2f} ms ({b_n} calls, {100 * b_ms / bwd:5.1f}% of the backward's "
+              "CUDA-event span)")
     bk.sort(key=lambda e: -e.device_time_total)
     print("  the backward's ten largest device operations:")
     for e in bk[:10]:

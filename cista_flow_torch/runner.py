@@ -19,6 +19,15 @@ the state, the previous frame and ``extra``; ``step``, ``step_window`` and
 ``run_window`` take the whole frame on rank 0, which broadcasts it, and
 return the whole frame on rank 0 alone (None elsewhere). The other ranks
 either make the same calls, or ``follow()`` rank 0's until it ``close()``s.
+
+While a torch profiler records, a call of ``step`` or ``step_window`` is
+the span ``cista.runner.call`` around ``runner.upload`` (host arrays to
+the device), ``runner.issue`` (the step or window issued), ``runner.wait``
+(an explicit wait for the issued work, made only then) and
+``runner.download`` (frames and flows to the host), and counts
+``runner.bytes_up``, ``runner.bytes_down`` and, on the card,
+``runner.device_allocs`` (the call's new device allocations). Otherwise
+none of this runs (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from .device import DTYPES, cudnn_fp32, resolve_device
 from .models import composite
 from .models.cista_lstc import zero_state as cista_zero_state
 from .ops import bands
+from .utils import profiling
 
 # what rank 0 tells the other ranks of a row-sharded Reconstructor
 CLOSE, RESET, STEP, WINDOW = range(4)
@@ -127,12 +137,13 @@ class Reconstructor:
         in f32) -> (rec (B, 1, H, W), flow (B, 2, H, W)); carries the state,
         the frame and ``extra``. The flow returned is the flow net's (the
         GT flow in the no-flow modes), as the JAX runner returns it."""
-        if self.band is not None:
-            recs, flows = self._on_bands(
-                STEP, None if events is None else events[None],
-                None if gt_flow is None else gt_flow[None])
-            return (None, None) if recs is None else (recs[0], flows[0])
-        return self._step(events, gt_flow)
+        with profiling.annotate("runner.issue"):
+            if self.band is not None:
+                recs, flows = self._on_bands(
+                    STEP, None if events is None else events[None],
+                    None if gt_flow is None else gt_flow[None])
+                return (None, None) if recs is None else (recs[0], flows[0])
+            return self._step(events, gt_flow)
 
     def _step(self, events, gt_flow):
         batch_gt = {} if gt_flow is None else {"gt_flow": gt_flow}
@@ -161,9 +172,10 @@ class Reconstructor:
         the state, the last frame and ``extra`` to the next call. cista-eraft
         without GT flows takes the time-parallel window; with them it steps,
         as the JAX runner does (cista_flow_tpu/runner.py:152)."""
-        if self.band is not None:
-            return self._on_bands(WINDOW, events, gt_flows)
-        return self._window(events, gt_flows)
+        with profiling.annotate("runner.issue"):
+            if self.band is not None:
+                return self._on_bands(WINDOW, events, gt_flows)
+            return self._window(events, gt_flows)
 
     def _window(self, events, gt_flows):
         if self.mode == "cista-eraft" and gt_flows is None:
@@ -246,7 +258,9 @@ class Reconstructor:
         if v.shape[1] != self.batch:
             raise ValueError(f"voxels for {v.shape[1]} streams, reconstructor "
                              f"has {self.batch}")
-        return torch.from_numpy(v).to(self.device, self.dtype)
+        profiling.count("runner.bytes_up", v.nbytes)
+        with profiling.annotate("runner.upload"):
+            return torch.from_numpy(v).to(self.device, self.dtype)
 
     def device_flows(self, flows, steps: int, use_gt_flow: bool):
         """GT flows (T, 2, H, W) (or (T, B, 2, H, W)) as f32 on the device
@@ -260,7 +274,9 @@ class Reconstructor:
         f = np.asarray(flows, np.float32)
         if f.ndim == 4:
             f = f[:, None]
-        return torch.from_numpy(f).to(self.device)
+        profiling.count("runner.bytes_up", f.nbytes)
+        with profiling.annotate("runner.upload"):
+            return torch.from_numpy(f).to(self.device)
 
     def step(self, voxel_chw: np.ndarray, gt_flow_chw: np.ndarray | None = None,
              use_gt_flow: bool = False):
@@ -270,14 +286,18 @@ class Reconstructor:
         when B > 1. For cista-eraft this is the stepwise path (fnet on the
         previous and the current voxel); ``step_window`` is the
         time-parallel one."""
-        if self.band is not None and self.band.rank != 0:
-            self.run_step(None)          # rank 0's step, on this rank's band
-            return None
-        gt = self.device_flows(None if gt_flow_chw is None else np.asarray(gt_flow_chw)[None],
-                               1, use_gt_flow)
-        rec, flow = self.run_step(self.device_events(np.asarray(voxel_chw)[None])[0],
-                                  None if gt is None else gt[0])
-        return self._to_host(rec[None], flow[None], return_all=False)
+        with profiling.annotate("runner.call"):
+            if self.band is not None and self.band.rank != 0:
+                self.run_step(None)      # rank 0's step, on this rank's band
+                return None
+            allocs = self._device_allocs()
+            gt = self.device_flows(
+                None if gt_flow_chw is None else np.asarray(gt_flow_chw)[None], 1, use_gt_flow)
+            rec, flow = self.run_step(self.device_events(np.asarray(voxel_chw)[None])[0],
+                                      None if gt is None else gt[0])
+            out = self._to_host(rec[None], flow[None], return_all=False)
+            self._count_allocs(allocs)
+            return out
 
     def step_window(self, voxels, gt_flows_chw=None, use_gt_flow: bool = False,
                     return_all: bool = False):
@@ -287,18 +307,44 @@ class Reconstructor:
         last step's (rec (H, W), flow (2, H, W)), or with ``return_all``
         every step's (recs (T, H, W), flows (T, 2, H, W)); a batch axis
         follows T when B > 1. On a mesh, rank 0's; None elsewhere."""
-        if self.band is not None and self.band.rank != 0:
-            self.run_window(None)        # rank 0's window, on this rank's band
+        with profiling.annotate("runner.call"):
+            if self.band is not None and self.band.rank != 0:
+                self.run_window(None)    # rank 0's window, on this rank's band
+                return None
+            if len(voxels) == 0:
+                raise ValueError("empty window")
+            allocs = self._device_allocs()
+            recs, flows = self.run_window(
+                self.device_events(voxels),
+                self.device_flows(gt_flows_chw, len(voxels), use_gt_flow))
+            out = self._to_host(recs, flows, return_all)
+            self._count_allocs(allocs)
+            return out
+
+    def _device_allocs(self):
+        """The card's count of device allocations so far, while a profiler
+        records; None otherwise, and off the card."""
+        if self.device.type != "cuda" or not profiling.enabled():
             return None
-        if len(voxels) == 0:
-            raise ValueError("empty window")
-        recs, flows = self.run_window(self.device_events(voxels),
-                                      self.device_flows(gt_flows_chw, len(voxels), use_gt_flow))
-        return self._to_host(recs, flows, return_all)
+        return torch.cuda.memory_stats(self.device)["num_device_alloc"]
+
+    def _count_allocs(self, allocs_before) -> None:
+        """Counts the call's new device allocations (``allocs_before``: the
+        call's ``_device_allocs()`` at its start; None counts nothing)."""
+        if allocs_before is not None:
+            profiling.count("runner.device_allocs", self._device_allocs() - allocs_before)
 
     def _to_host(self, recs, flows, return_all: bool):
-        recs = recs[:, :, 0].float().cpu().numpy()
-        flows = flows.float().cpu().numpy()
+        if profiling.enabled():
+            with profiling.annotate("runner.wait"):
+                if recs.is_cuda:         # the work issued so far, waited for here
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(recs.device))
+                    done.synchronize()
+        with profiling.annotate("runner.download"):
+            recs = recs[:, :, 0].float().cpu().numpy()
+            flows = flows.float().cpu().numpy()
+        profiling.count("runner.bytes_down", recs.nbytes + flows.nbytes)
         if self.batch == 1:
             recs, flows = recs[:, 0], flows[:, 0]
         if return_all:

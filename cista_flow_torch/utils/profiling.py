@@ -1,11 +1,20 @@
-"""Profiling: ``trace``, ``annotate`` and ``StepTimer``.
+"""Profiling: ``trace``, ``annotate``, ``count`` and ``StepTimer``.
 
 Counterpart of cista_flow_tpu/utils/profiling.py:
 * ``trace(logdir)``: a ``torch.profiler`` capture of the host and, where
   there is a card, the device, written as a chrome trace
   (``<logdir>/trace_<ns>.pt.trace.json``) that ``utils/trace_tools.py``
-  reads; ``with trace('build/tb'): run_steps()``.
-* ``annotate(name)``: a named region in that trace (``record_function``).
+  reads, with the counters beside it (``counters_<ns>.json``);
+  ``with trace('build/tb'): run_steps()``.
+* ``annotate(name)``: the program's span at a layer boundary. While a torch
+  profiler records (any: ``trace``, a benchmark's, ``profile_step``'s) it
+  is a ``record_function`` range named ``cista.<name>``, which the profiler
+  stamps on the clock of the device's kernels and copies, on the thread
+  that opened it, inside the span that encloses it. Otherwise it is one
+  shared no-op context: no range, no clock read.
+* ``count(name, n)``: adds ``n`` to the counter ``name`` while a profiler
+  records, else does nothing; ``counters()`` reads the counters, ``trace``
+  zeroes them at its start.
 * ``StepTimer``: host-side wall time per step, with the JAX class's warmup
   and summary fields. ``stop(result)`` waits for the result's device first
   (``torch.cuda.synchronize`` where a CUDA tensor is in it; the JAX
@@ -14,37 +23,76 @@ Counterpart of cista_flow_tpu/utils/profiling.py:
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
 import os
 import time
 
 import numpy as np
 import torch
 
+PREFIX = "cista."
+enabled = torch._C._autograd._profiler_enabled      # whether a torch profiler records
+_COUNTERS = collections.Counter()
+
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Capture the block's host operations and device kernels; the chrome
-    trace is written to ``logdir`` when the block ends. Yields the
-    profiler."""
+    trace and the counters are written to ``logdir`` when the block ends.
+    Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    _COUNTERS.clear()
     prof = profile(activities=activities)
     prof.__enter__()
     try:
         yield prof
     finally:
         prof.__exit__(None, None, None)
-        prof.export_chrome_trace(os.path.join(logdir, f"trace_{time.time_ns()}.pt.trace.json"))
+        ns = time.time_ns()
+        prof.export_chrome_trace(os.path.join(logdir, f"trace_{ns}.pt.trace.json"))
+        with open(os.path.join(logdir, f"counters_{ns}.json"), "w") as f:
+            json.dump(counters(), f, indent=1, sort_keys=True)
+
+
+class _Off:
+    """``annotate``'s span while no profiler records: nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return None
+
+
+_OFF = _Off()
 
 
 def annotate(name: str):
-    """A named region of the trace: ``with annotate('flow_net'): ...``."""
-    return torch.profiler.record_function(name)
+    """The span ``cista.<name>`` while a profiler records, else a no-op:
+    ``with annotate('flownet'): ...``."""
+    if not enabled():
+        return _OFF
+    return torch.profiler.record_function(PREFIX + name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler records."""
+    if enabled():
+        _COUNTERS[name] += n
+
+
+def counters() -> dict:
+    """{name: count} of what was counted while a profiler recorded, since
+    the process began or the last ``trace`` began."""
+    return dict(_COUNTERS)
 
 
 def _cuda_devices(result) -> set:

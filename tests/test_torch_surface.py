@@ -462,11 +462,11 @@ def test_trace_and_summarize_a_tiny_run(tmp_path):
             for _ in range(3):
                 torch.nn.functional.conv2d(x, w, padding=1).relu()
     events = trace_tools.load_events(str(tmp_path))
-    assert any(e["name"] == "tiny_region" for e in events)
+    assert any(e["name"] == "cista.tiny_region" for e in events)
     assert trace_tools.summarize(str(tmp_path)) == []          # no card: no device events
     host = trace_tools.summarize(str(tmp_path), runs=3, top=50, side="host")
     names = [k for k, _, _ in host]
-    assert "tiny_region" not in names and "aten::conv2d" not in names   # containers left out
+    assert "cista.tiny_region" not in names and "aten::conv2d" not in names   # containers left out
     assert all(ms >= 0 for _, ms, _ in host) and sum(n for _, _, n in host) > 3
     assert {e.get("cat") for e in events} <= {"cpu_op", "user_annotation"}
     with pytest.raises(FileNotFoundError):
