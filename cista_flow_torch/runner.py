@@ -20,14 +20,29 @@ the state, the previous frame and ``extra``; ``step``, ``step_window`` and
 return the whole frame on rank 0 alone (None elsewhere). The other ranks
 either make the same calls, or ``follow()`` rank 0's until it ``close()``s.
 
+On the card the host copies go through page-locked memory, both ways.
+Voxels (and GT flows) are converted chunk by chunk (a window's steps, or a
+one-step call's streams) into one reused page-locked staging tensor
+(``Staging``), each chunk's copy to a fresh device tensor issued as soon
+as it is filled, so the copy engine moves one chunk while the host fills
+the next. Frames and flows come back by ``non_blocking`` copies into
+page-locked blocks of torch's caching host allocator and one wait; each
+returned array is the caller's, and its block goes back to the cache
+(for a later call) only when the caller drops it. Off the card the copies
+are plain ``.to`` and ``.cpu()``.
+
 While a torch profiler records, a call of ``step`` or ``step_window`` is
 the span ``cista.runner.call`` around ``runner.upload`` (host arrays to
 the device), ``runner.issue`` (the step or window issued), ``runner.wait``
 (an explicit wait for the issued work, made only then) and
 ``runner.download`` (frames and flows to the host), and counts
 ``runner.bytes_up``, ``runner.bytes_down`` and, on the card,
-``runner.device_allocs`` (the call's new device allocations). Otherwise
-none of this runs (``utils.profiling``).
+``runner.device_allocs`` (the call's new device allocations),
+``runner.bytes_staged`` (the host arrays' bytes that went through
+page-locked memory, by the measure of ``bytes_up`` and ``bytes_down``)
+and ``runner.host_allocs`` (page-locked allocations: staging tensors made,
+and the blocks the download's copies took new from CUDA). Otherwise none
+of this runs (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -70,6 +85,47 @@ def checkpoint_and_name(cfg) -> tuple:
     return path, os.path.splitext(os.path.basename(path))[0]
 
 
+def chunks(x):
+    """What a staged upload moves one chunk at a time, indexed along its
+    first axis: a window's steps (T, B, ...), or a one-step call's streams
+    (1, B, ...)."""
+    return x[0] if x.shape[0] == 1 else x
+
+
+class Staging:
+    """One reused host tensor through which host arrays go to the device,
+    page-locked where ``pinned``. It is made again only for another shape
+    or dtype (counted as ``runner.host_allocs``), and written again only
+    after the copies out of it have completed."""
+
+    def __init__(self, pinned: bool = True):
+        self.pinned = pinned
+        self.host = None
+        self.sent = None            # a CUDA event after the last copy out of ``host``
+
+    def fill(self, v: np.ndarray, dtype, out: torch.Tensor | None = None) -> torch.Tensor:
+        """``v`` converted to ``dtype`` chunk by chunk into the staging
+        tensor, which is returned; with ``out`` (a device tensor of ``v``'s
+        shape and ``dtype``) each chunk's copy into it is issued on the
+        current stream as soon as the chunk is filled."""
+        if self.sent is not None:
+            self.sent.synchronize()
+        if self.host is None or self.host.shape != v.shape or self.host.dtype != dtype:
+            self.host = None        # its block goes back to the cache before another is taken
+            self.host = torch.empty(v.shape, dtype=dtype, pin_memory=self.pinned)
+            profiling.count("runner.host_allocs")
+        src, host = chunks(v), chunks(self.host)
+        dst = None if out is None else chunks(out)
+        for k in range(len(host)):
+            host[k].copy_(torch.from_numpy(src[k]))
+            if dst is not None:
+                dst[k].copy_(host[k], non_blocking=True)
+        if out is not None:
+            self.sent = torch.cuda.Event()
+            self.sent.record(torch.cuda.current_stream(out.device))
+        return self.host
+
+
 class Reconstructor:
     """Closed-loop reconstructor over a batch of ``batch`` streams; with a
     ``mesh``, this rank's band of their rows."""
@@ -97,6 +153,8 @@ class Reconstructor:
         self.model.to(self.device, self.dtype)
         self.iters = cfg.default_flow_iters()
         self.mode = cfg.model_mode
+        self.pinned = self.device.type == "cuda"
+        self.voxel_stage, self.flow_stage = Staging(), Staging()
         self._zero()
 
     def reset(self):
@@ -258,9 +316,7 @@ class Reconstructor:
         if v.shape[1] != self.batch:
             raise ValueError(f"voxels for {v.shape[1]} streams, reconstructor "
                              f"has {self.batch}")
-        profiling.count("runner.bytes_up", v.nbytes)
-        with profiling.annotate("runner.upload"):
-            return torch.from_numpy(v).to(self.device, self.dtype)
+        return self._upload(self.voxel_stage, v, self.dtype)
 
     def device_flows(self, flows, steps: int, use_gt_flow: bool):
         """GT flows (T, 2, H, W) (or (T, B, 2, H, W)) as f32 on the device
@@ -274,9 +330,19 @@ class Reconstructor:
         f = np.asarray(flows, np.float32)
         if f.ndim == 4:
             f = f[:, None]
-        profiling.count("runner.bytes_up", f.nbytes)
+        return self._upload(self.flow_stage, f, torch.float32)
+
+    def _upload(self, stage: Staging, v: np.ndarray, dtype) -> torch.Tensor:
+        """A new device tensor of host ``v`` in ``dtype``: on the card
+        through ``stage``, converted on the host as ``.to`` would."""
+        profiling.count("runner.bytes_up", v.nbytes)
         with profiling.annotate("runner.upload"):
-            return torch.from_numpy(f).to(self.device)
+            if not self.pinned:
+                return torch.from_numpy(v).to(self.device, dtype)
+            out = torch.empty(v.shape, dtype=dtype, device=self.device)
+            stage.fill(v, dtype, out)
+        profiling.count("runner.bytes_staged", v.nbytes)
+        return out
 
     def step(self, voxel_chw: np.ndarray, gt_flow_chw: np.ndarray | None = None,
              use_gt_flow: bool = False):
@@ -342,14 +408,41 @@ class Reconstructor:
                     done.record(torch.cuda.current_stream(recs.device))
                     done.synchronize()
         with profiling.annotate("runner.download"):
-            recs = recs[:, :, 0].float().cpu().numpy()
-            flows = flows.float().cpu().numpy()
+            recs, flows = recs[:, :, 0].float(), flows.float()
+            if self.pinned:
+                recs, flows = self._download(recs, flows)
+            else:
+                recs, flows = recs.cpu().numpy(), flows.cpu().numpy()
         profiling.count("runner.bytes_down", recs.nbytes + flows.nbytes)
         if self.batch == 1:
             recs, flows = recs[:, 0], flows[:, 0]
         if return_all:
             return recs, flows
         return recs[-1], flows[-1]
+
+    def _download(self, *tensors) -> list:
+        """Device tensors as numpy arrays in new page-locked blocks of torch's
+        caching host allocator, copied with one wait: each array is the
+        caller's alone, and its block is taken again only once it is dropped."""
+        made = self._host_blocks_made()
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        done.synchronize()
+        if made is not None:
+            profiling.count("runner.host_allocs", self._host_blocks_made() - made)
+        profiling.count("runner.bytes_staged", sum(h.nbytes for h in host))
+        return [h.numpy() for h in host]
+
+    def _host_blocks_made(self):
+        """The caching host allocator's count of page-locked blocks made so
+        far, while a profiler records and this torch reports it; else None."""
+        stats = getattr(torch.cuda, "host_memory_stats", None)
+        if stats is None or not profiling.enabled():
+            return None
+        return stats().get("num_host_alloc")
 
 
 def discover_sequences(path_to_test_data: str) -> list[str]:
